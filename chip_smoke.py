@@ -10,10 +10,13 @@ Phases, one JSON line each:
   3. kernel     - the forward kernel against its plain PyTorch version on
                   the card, at S=57/29/15, batch 16, float32 and bfloat16,
                   TF32 off;
-  4. kernel_bwd - the backward kernel against its plain version at every
-                  S=57 layer and the first S=29 and S=15 layers, batch 16,
-                  both dtypes; the autograd Function's gradients against
-                  autograd through the plain forward;
+  4. kernel_bwd - the four backward kernels (K1 recompute, K2 dx, K3 dw1,
+                  K4 dw2), each against its plain stage fed the plain K1
+                  outputs, then the composed backward against the plain
+                  backward, at every S=57 layer and the first S=29 and
+                  S=15 layers, batch 16, both dtypes; the autograd
+                  Function's gradients against autograd through the plain
+                  forward;
   5. serve      - Predictor(ModelConfig()) with seeded random weights answers
                   4 requests of batch 16 in float32 and in bfloat16, under
                   PyTorch's default TF32 settings (the model turns TF32 off
@@ -22,11 +25,14 @@ Phases, one JSON line each:
                   the card's float32 run on a batch of 2;
   6. train      - DepthTrainer(Config()) from seeded weights takes 3 steps
                   of batch 16 in float32 and 3 in bfloat16 on synthetic
-                  data; each step must launch each kernel 6 times; then one
+                  data; each step must launch the forward kernel and each
+                  backward kernel 6 times; then one
                   float32 step of batch 2 on the card against the CPU port;
-  7. times      - forward and backward kernel, plain version, bound and the
-                  cuDNN sequence for each S=57 layer shape; serving forward
-                  and train step time, img/s and the host time to enqueue;
+  7. times      - forward kernel, plain version, bound and the cuDNN
+                  sequence for each S=57 layer shape; the backward per
+                  layer (composed and per kernel, plain, bound, library,
+                  transient peak memory); serving forward and train step
+                  time, img/s and the host time to enqueue;
   8. profile    - device busy share and top kernels of the served forward
                   and of one train step, from torch.profiler;
   9. kernel_lloyd  - the fused comparison + quantization kernel (B4)
@@ -49,6 +55,8 @@ Then one {"kernels": [...]} line, the card's name and power limit on a line
 of their own, and the closing {"ok": true, ...} line.  Every failed check
 raises, so the script exits non-zero without the closing line.  It needs a
 CUDA card and the repository beside it; it never falls back to the CPU.
+``--backward-only`` runs phases 1, 2, 4 and the backward times and stops
+without the closing line (for work on the backward kernels).
 """
 from __future__ import annotations
 
@@ -68,10 +76,15 @@ BATCH = 16
 # plain version rounds the 1x1 output to bfloat16 before the affine too,
 # and both sum 2736 bfloat16 products in other orders.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-# Backward kernel against its plain version.  float32: sums over up to
-# 52k pixels per weight gradient, in another order and with atomics whose
-# order changes from run to run.  bfloat16: r and dz rounded once each.
+# Backward kernels against their plain versions, each stage alone and
+# composed.  float32: sums over up to 52k pixels per weight gradient, in
+# another order and with atomics whose order changes from run to run.
+# bfloat16: r and dz rounded once each.  K1's dz is held where the kernel's
+# ReLU mask (r > 0) equals the plain one; where they differ, both r values
+# must lie within MASK_FLIP_R of 0 (a rounding flip of a = z*scale+shift
+# around 0), and the flips are counted.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+MASK_FLIP_R = 1e-4
 # The autograd Function (both kernels) against autograd through the plain
 # forward: in bfloat16 the plain forward also rounds z, and autograd rounds
 # each convolution's gradient, to bfloat16.
@@ -246,6 +259,55 @@ def bwd_inputs(s: int, c_in: int, dt: torch.dtype, seed: int):
 
 
 GRAD_NAMES = ("dx", "dw1", "dscale", "dshift", "dw2")
+BWD_STAGES = ("bwd_recompute", "bwd_dx", "bwd_dw1", "bwd_dw2")
+
+
+def _max_abs(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def stage_checks(args, gy, dt):
+    """Each backward kernel against its plain stage on the card, K2-K4 fed
+    the plain K1 outputs so that each kernel is held alone.  Returns one
+    row per kernel."""
+    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    x, w1 = args[:2]
+    with torch.no_grad():
+        r, dz, dscale, dshift = ds.bwd_recompute_reference(*args, gy)
+        k1 = ds.bwd_recompute(*args, gy)
+        pairs = {"bwd_dx": (ds.bwd_dx(dz, w1, x.shape),
+                            ds.bwd_dx_reference(dz, w1, x.shape)),
+                 "bwd_dw1": (ds.bwd_dw1(x, dz), ds.bwd_dw1_reference(x, dz)),
+                 "bwd_dw2": (ds.bwd_dw2(r, gy), ds.bwd_dw2_reference(r, gy))}
+    torch.cuda.synchronize()
+    rows = {}
+    for name, (got, want) in pairs.items():
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} output {tuple(got.shape)}")
+        rows[name] = {"rel_l2": rel_l2(got, want),
+                      "max_abs_err": _max_abs(got, want)}
+    kr, kdz, kds, kdh = k1
+    check(kr.shape == r.shape and kr.dtype == dt and kdz.dtype == dt,
+          f"bwd_recompute r {tuple(kr.shape)} {kr.dtype}")
+    flip = (kr > 0) != (r > 0)
+    if flip.any():
+        near = max(float(kr[flip].float().abs().max()),
+                   float(r[flip].float().abs().max()))
+        check(near < MASK_FLIP_R,
+              f"bwd_recompute ReLU mask differs away from a = 0 ({near})")
+    keep = ~flip
+    errs = {"r": rel_l2(kr, r), "dz": rel_l2(kdz[keep], dz[keep]),
+            "dscale": rel_l2(kds, dscale), "dshift": rel_l2(kdh, dshift)}
+    rows["bwd_recompute"] = {
+        "rel_l2": max(errs.values()), **{f"rel_l2_{k}": v
+                                         for k, v in errs.items()},
+        "mask_flips": int(flip.sum()),
+        "max_abs_err": max(_max_abs(kr, r), _max_abs(kdz[keep], dz[keep]),
+                           _max_abs(kds, dscale), _max_abs(kdh, dshift))}
+    for name, row in rows.items():
+        check(row["rel_l2"] < BWD_TOL[dt] and np.isfinite(row["max_abs_err"]),
+              f"{name} disagrees with its plain stage {row}")
+    return {n: rows[n] for n in BWD_STAGES}
 
 
 def phase_kernel_bwd():
@@ -258,6 +320,7 @@ def phase_kernel_bwd():
         for i, (s, c_in) in enumerate(BWD_SHAPES):
             for dt in DTYPES:
                 args, gy = bwd_inputs(s, c_in, dt, SEED + 50 + i)
+                stages = stage_checks(args, gy, dt)
                 with torch.no_grad():
                     got = dense_sandwich_bwd(*args, gy)
                     want = dense_sandwich_bwd_reference(*args, gy)
@@ -268,12 +331,12 @@ def phase_kernel_bwd():
                     check(a.shape == b.shape, f"{name} {tuple(a.shape)}")
                     check(bool(torch.isfinite(a).all()), f"{name} non-finite")
                     row[name] = rel_l2(a, b)
-                row["max_abs_err"] = max(float((a.float() - b.float()).abs()
-                                               .max()) for a, b in
-                                         zip(got, want))
+                row["max_abs_err"] = max(_max_abs(a, b)
+                                         for a, b in zip(got, want))
+                row["stages"] = stages
                 rows.append(row)
                 check(all(row[n] < BWD_TOL[dt] for n in GRAD_NAMES),
-                      f"backward kernel disagrees with plain {row}")
+                      f"backward kernels disagree with plain {row}")
         # the Function (forward and backward kernels) against autograd
         # through the plain forward, at the first S=57 layer
         for dt in DTYPES:
@@ -378,17 +441,20 @@ def _flat(tensors) -> torch.Tensor:
 
 def phase_train():
     """3 train steps of batch 16 per dtype through DepthTrainer, each
-    launching both kernels 6 times; then one float32 step of batch 2 on
-    the card against the CPU port from the same weights."""
+    launching the forward kernel and each backward kernel 6 times; then one
+    float32 step of batch 2 on the card against the CPU port from the same
+    weights."""
     from md_rdm_tpu_torch.core.config import Config, ModelConfig
-    from md_rdm_tpu_torch.kernels.dense_sandwich import (dense_sandwich,
-                                                         dense_sandwich_bwd)
+    from md_rdm_tpu_torch.kernels.dense_sandwich import (BWD_KERNELS,
+                                                         dense_sandwich)
     from md_rdm_tpu_torch.training.module import DepthTrainer
 
     x, y = train_batch(BATCH, SEED + 3)
     xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     states, steps = {}, []
-    dense_sandwich.launches = dense_sandwich_bwd.launches = 0
+    dense_sandwich.launches = 0
+    for fn in BWD_KERNELS:
+        fn.launches = 0
     for dt in DTYPES:
         trainer = DepthTrainer(Config(model=ModelConfig(
             compute_dtype=DT_NAME[dt])), device="cuda")
@@ -397,19 +463,22 @@ def phase_train():
         params0 = _flat(p for p in model.parameters() if p.numel())
         stats0 = _flat(b for n, b in model.named_buffers() if "running" in n)
         for i in range(TRAIN_STEPS):
-            f0, b0 = dense_sandwich.launches, dense_sandwich_bwd.launches
+            f0 = dense_sandwich.launches
+            b0 = [fn.launches for fn in BWD_KERNELS]
             t0 = time.perf_counter()
             state, logs = trainer.train_step(state, xd, yd)
             logs = {k: float(v) for k, v in logs.items()}
             secs = time.perf_counter() - t0
             row = {"dtype": DT_NAME[dt], "step": i + 1, "seconds": secs,
                    "fwd_launches": dense_sandwich.launches - f0,
-                   "bwd_launches": dense_sandwich_bwd.launches - b0,
+                   "bwd_launches": {fn.__name__: fn.launches - n
+                                    for fn, n in zip(BWD_KERNELS, b0)},
                    "logs": logs}
             steps.append(row)
             check(all(np.isfinite(v) for v in logs.values()),
                   f"non-finite log {row}")
-            check(row["fwd_launches"] == 6 and row["bwd_launches"] == 6,
+            check(row["fwd_launches"] == 6
+                  and set(row["bwd_launches"].values()) == {6},
                   f"kernel launches per step {row}")
         params = _flat(p for p in model.parameters() if p.numel())
         stats = _flat(b for n, b in model.named_buffers() if "running" in n)
@@ -418,7 +487,7 @@ def phase_train():
         check(not torch.equal(stats, stats0), "running stats did not move")
         states[dt] = (trainer, state)
     launches = {"forward": dense_sandwich.launches,
-                "backward": dense_sandwich_bwd.launches}
+                **{fn.__name__: fn.launches for fn in BWD_KERNELS}}
 
     # one float32 step of batch 2, card against the CPU port (at the
     # default thread count, and single-threaded for the rounding floor)
@@ -533,27 +602,37 @@ def phase_times(preds, requests, smi):
     return rows
 
 
+def _bound(flops: int, nbytes: int, dt) -> dict:
+    by_ops = flops / PEAK_FLOPS[dt] >= nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(flops / PEAK_FLOPS[dt],
+                                  nbytes / PEAK_BYTES),
+            "bound_by": "operations" if by_ops else "bytes",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
 def phase_times_bwd(smi):
-    """Backward kernel, plain version, bound and cuDNN sequence (autograd
-    through :func:`library_sandwich`, its graph built once, so z is saved
-    there and not recomputed) for each S=57 layer."""
+    """Per S=57 layer: the backward composed (its four kernels) against the
+    plain backward and autograd through :func:`library_sandwich` (its graph
+    built once, so z is saved there and not recomputed), with the
+    function's bound and the transient peak memory of one call; then each
+    kernel fed the plain K1 outputs against its plain stage, its own bound
+    and one PyTorch call computing the same product (none for K1)."""
     from md_rdm_tpu_torch.core.device import no_tf32
-    from md_rdm_tpu_torch.kernels.dense_sandwich import (
-        dense_sandwich_bwd, dense_sandwich_bwd_reference, pack_weights,
-        sandwich_bwd_bytes, sandwich_bwd_flops)
+    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
     rows = []
     with no_tf32():
         for dt in DTYPES:
             for i, c_in in enumerate(S57_LAYERS):
                 args, gy = bwd_inputs(57, c_in, dt, 200 + i)
-                packed = pack_weights(*args[1:], dt)
+                x, w1, _, _, w2 = args
+                packed = ds.pack_weights(*args[1:], dt)
                 leaves = [a.clone().requires_grad_() for a in args]
                 lib_out = library_sandwich(*leaves)
                 iters = 3 if dt == torch.float32 else 5
                 t = {"ms": [], "plain_ms": [], "library_ms": []}
-                kernel = lambda: dense_sandwich_bwd(  # noqa: E731
-                    *args, gy, packed.w1t, packed.w2p)
-                plain = lambda: dense_sandwich_bwd_reference(  # noqa: E731
+                kernel = lambda: ds.dense_sandwich_bwd(  # noqa: E731
+                    *args, gy, packed.w1t)
+                plain = lambda: ds.dense_sandwich_bwd_reference(  # noqa: E731
                     *args, gy)
                 lib = lambda: torch.autograd.grad(  # noqa: E731
                     lib_out, leaves, gy.permute(0, 3, 1, 2),
@@ -563,19 +642,66 @@ def phase_times_bwd(smi):
                         t["ms"].append(cuda_ms(kernel, iters, warmup=1))
                         t["plain_ms"].append(cuda_ms(plain, iters, warmup=1))
                     t["library_ms"].append(cuda_ms(lib, iters, warmup=1))
-                del lib_out
-                flops = sandwich_bwd_flops(BATCH, 57, c_in, 57 * 48)
-                nbytes = sandwich_bwd_bytes(BATCH, 57, c_in, 57 * 48,
-                                            args[0].element_size())
-                by_ops = flops / PEAK_FLOPS[dt] >= nbytes / PEAK_BYTES
-                rows.append({"s": 57, "c_in": c_in, "dtype": DT_NAME[dt],
-                             **{k: min(v) for k, v in t.items()},
-                             "bound_ms": 1e3 * max(flops / PEAK_FLOPS[dt],
-                                                   nbytes / PEAK_BYTES),
-                             "bound_by": "operations" if by_ops else "bytes",
-                             "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+                del lib_out, leaves
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    grads = kernel()
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    del grads
+                    stages = _stage_times(ds, args, gy, packed, dt, iters)
+                row = {"s": 57, "c_in": c_in, "dtype": DT_NAME[dt],
+                       **{k: min(v) for k, v in t.items()},
+                       **_bound(ds.sandwich_bwd_flops(BATCH, 57, c_in,
+                                                      57 * 48),
+                                ds.sandwich_bwd_bytes(BATCH, 57, c_in,
+                                                      57 * 48,
+                                                      x.element_size()), dt),
+                       "transient_peak_gb": peak / 1e9, "kernels": stages}
+                rows.append(row)
     emit({"phase": "times_kernel_bwd", "card": smi, "rows": rows})
     return rows
+
+
+def _stage_times(ds, args, gy, packed, dt, iters):
+    """Each backward kernel, its plain stage and its library call, timed in
+    turns on the plain K1 outputs."""
+    x, w1, _, _, w2 = args
+    r, dz, _, _ = ds.bwd_recompute_reference(*args, gy)
+    c_mid, c_in = w1.shape[:2]
+    w1m = w1.reshape(c_mid, c_in).to(dt)
+    xm = x.reshape(-1, c_in)
+    r4 = r.view(*x.shape[:3], c_mid).permute(0, 3, 1, 2)
+    g4 = gy.permute(0, 3, 1, 2)
+    fns = {
+        "bwd_recompute": (lambda: ds.bwd_recompute(*args, gy, packed.w1t),
+                          lambda: ds.bwd_recompute_reference(*args, gy),
+                          None),
+        "bwd_dx": (lambda: ds.bwd_dx(dz, w1, x.shape),
+                   lambda: ds.bwd_dx_reference(dz, w1, x.shape),
+                   lambda: torch.mm(dz, w1m)),
+        "bwd_dw1": (lambda: ds.bwd_dw1(x, dz),
+                    lambda: ds.bwd_dw1_reference(x, dz),
+                    lambda: torch.mm(dz.t(), xm)),
+        "bwd_dw2": (lambda: ds.bwd_dw2(r, gy),
+                    lambda: ds.bwd_dw2_reference(r, gy),
+                    lambda: torch.nn.grad.conv2d_weight(r4, w2.shape, g4,
+                                                        padding=1)),
+    }
+    work = ds.bwd_stage_work(BATCH, 57, c_in, c_mid, x.element_size())
+    out = {}
+    for name, (kernel, plain, lib) in fns.items():
+        t = {"ms": [], "plain_ms": [], "library_ms": []}
+        for _ in range(2):   # in turns: kernel, plain, library
+            t["ms"].append(cuda_ms(kernel, iters, warmup=1))
+            t["plain_ms"].append(cuda_ms(plain, iters, warmup=1))
+            if lib is not None:
+                t["library_ms"].append(cuda_ms(lib, iters, warmup=1))
+        out[name] = {k: (min(v) if v else None) for k, v in t.items()}
+        out[name].update(_bound(*work[name], dt))
+    return out
 
 
 def phase_times_train(states, batch, smi):
@@ -970,6 +1096,17 @@ def _totals(rows):
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
 
+# One PyTorch call computing each backward kernel's product (its library
+# time); K1's function has none.
+BWD_LIBRARY = {
+    "bwd_recompute": None,
+    "bwd_dx": "torch.mm(dz, w1 as [C_mid, C_in])",
+    "bwd_dw1": "torch.mm(dz^T, x), output in the compute dtype",
+    "bwd_dw2": "torch.nn.grad.conv2d_weight(r, g), output in the compute "
+               "dtype",
+}
+
+
 def kernels_line(checks, bwd_checks, time_rows, bwd_rows, serve_launches,
                  per_forward, train_launches, lloyd_checks, lloyd_rows,
                  optimal_launches):
@@ -985,6 +1122,48 @@ def kernels_line(checks, bwd_checks, time_rows, bwd_rows, serve_launches,
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     b1_optimal = optimal_launches["dense_sandwich"]
     b4 = optimal_launches["fused_comparison_quantize"]
+    bwd_entries = []
+    for name in BWD_STAGES:
+        f32 = [r["kernels"][name] for r in bwd_rows
+               if r["dtype"] == "float32"]
+        tot = {k: (sum(r[k] for r in f32)
+                   if all(r[k] is not None for r in f32) else None)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        gflop = sum(r["gflop"] for r in f32)
+        mbytes = sum(r["mbytes"] for r in f32)
+        bwd_entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "md_rdm_tpu_torch/csrc/dense_sandwich_bwd.cu",
+            "replaces": src + "dense_sandwich.py:245",
+            "also_replaces": [
+                src + "dense_sandwich.py:542 (_bwd_kernel_flat)",
+                src + "dense_sandwich_nhwc.py:168 (_bwd_kernel)"],
+            "launches": train_launches[name],
+            "launches_per_step": train_launches[name] // (
+                TRAIN_STEPS * len(DTYPES)),
+            "max_abs_err": max(c["stages"][name]["max_abs_err"]
+                               for c in bwd_checks
+                               if c["dtype"] == "float32"),
+            **tot,
+            "bound_by": ("operations" if gflop * 1e9 / PEAK_FLOPS[
+                torch.float32] >= mbytes * 1e6 / PEAK_BYTES else "bytes"),
+            "library": BWD_LIBRARY[name],
+            "headline": "float32, sum over the six S=57 layers, batch 16; "
+                        "K2-K4 fed the plain K1 outputs",
+            "shapes": [{"c_in": r["c_in"], "dtype": r["dtype"],
+                        **r["kernels"][name]} for r in bwd_rows],
+        })
+    bwd_entries[0]["backward"] = {
+        **bwd,
+        "library": "torch.autograd.grad through the cuDNN sequence "
+                   "(z saved, not recomputed)",
+        "headline": "float32, the four kernels composed, sum over the six "
+                    "S=57 layers, batch 16",
+        "shapes": [{k: v for k, v in r.items() if k != "kernels"}
+                   for r in bwd_rows],
+        "checks": bwd_checks,
+    }
     return {"kernels": [{
         "name": "dense_sandwich",
         "route": "cuda",
@@ -1005,26 +1184,7 @@ def kernels_line(checks, bwd_checks, time_rows, bwd_rows, serve_launches,
         "headline": "float32, sum over the six S=57 layers, batch 16",
         "shapes": time_rows,
         "checks": checks,
-    }, {
-        "name": "dense_sandwich_bwd",
-        "route": "cuda",
-        "source": "md_rdm_tpu_torch/csrc/dense_sandwich_bwd.cu",
-        "replaces": src + "dense_sandwich.py:245",
-        "also_replaces": [src + "dense_sandwich.py:542 (_bwd_kernel_flat)",
-                          src + "dense_sandwich_nhwc.py:168 (_bwd_kernel)"],
-        "launches": train_launches["backward"],
-        "launches_per_step": train_launches["backward"] // (
-            TRAIN_STEPS * len(DTYPES)),
-        "max_abs_err": max(c["max_abs_err"] for c in bwd_checks
-                           if c["dtype"] == "float32"),
-        **bwd,
-        "bound_by": "operations",
-        "library": "torch.autograd.grad through the cuDNN sequence "
-                   "(z saved, not recomputed)",
-        "headline": "float32, sum over the six S=57 layers, batch 16",
-        "shapes": bwd_rows,
-        "checks": bwd_checks,
-    }, {
+    }, *bwd_entries, {
         "name": "fused_comparison_quantize",
         "route": "cuda",
         "source": "md_rdm_tpu_torch/csrc/lloyd.cu",
@@ -1049,6 +1209,10 @@ def main() -> int:
     import md_rdm_tpu_torch  # noqa: F401  (fails outside the repository)
     smi = phase_device()
     phase_build()
+    if "--backward-only" in sys.argv[1:]:
+        phase_kernel_bwd()
+        phase_times_bwd(smi)
+        return 0
     checks = phase_kernel()
     bwd_checks = phase_kernel_bwd()
     lloyd_checks = phase_kernel_lloyd()

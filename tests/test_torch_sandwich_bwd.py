@@ -1,10 +1,14 @@
-"""Port's sandwich backward on CPU tensors (its plain version, which the
-CUDA kernel is held against on the card by chip_smoke.py) against the JAX
-package's TPU backward kernels run interpreted: ``_bwd_kernel`` (B3), the
-flat-frame pair ``_kernel_flat`` / ``_bwd_kernel_flat`` (B2f / B2b) and the
-NHWC pair (B5f / B5b); plus the autograd Function and ``conv_bn_stats``.
-Bar: gradients normalized by their max, 5e-4 (as tests/test_dense_sandwich.py
-holds the TPU kernels)."""
+"""Port's sandwich backward on CPU tensors (the composition of the plain
+versions of its four kernels K1-K4, which chip_smoke.py holds the CUDA
+kernels against on the card) against the JAX package's TPU backward
+kernels run interpreted: ``_bwd_kernel`` (B3), the flat-frame pair
+``_kernel_flat`` / ``_bwd_kernel_flat`` (B2f / B2b) and the NHWC pair (B5f
+/ B5b); the shifted-window semantics of K1's dr and K4's dw2 at the image
+edge; plus the autograd Function and ``conv_bn_stats``.  Bar: gradients
+normalized by their max, 5e-4 in float32 (as tests/test_dense_sandwich.py
+holds the TPU kernels), 2e-2 in bfloat16 (the backward's bf16 bar: both
+sides round r and dz to bf16, and another summation order of z moves a
+rounding by one bf16 ulp)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ from md_rdm_tpu.kernels.dense_sandwich_nhwc import (sandwich_nhwc,
 from md_rdm_tpu_torch.kernels import dense_sandwich as ds
 
 TOL = 5e-4
+BF16_TOL = 2e-2
 
 
 def _inputs(b, s, c_in, seed=1):
@@ -49,13 +54,18 @@ def _to_jax_layout(grads):
             dw2.transpose(2, 3, 1, 0))
 
 
-def _assert_close(got, want, names=("dx", "dw1", "dscale", "dshift", "dw2")):
+def _assert_close(got, want, names=("dx", "dw1", "dscale", "dshift", "dw2"),
+                  tol=TOL):
     for gg, ww, name in zip(got, want, names):
         ww = np.asarray(ww, np.float32)
         assert gg.shape == ww.shape, (name, gg.shape, ww.shape)
         den = float(np.max(np.abs(ww))) + 1e-9
-        np.testing.assert_allclose(gg / den, ww / den, rtol=TOL, atol=TOL,
+        np.testing.assert_allclose(gg / den, ww / den, rtol=tol, atol=tol,
                                    err_msg=name)
+
+
+def _launches():
+    return [fn.launches for fn in ds.BWD_KERNELS]
 
 
 @pytest.mark.parametrize("b,s,c_in", [(2, 15, 96), (2, 29, 192),
@@ -65,12 +75,29 @@ def test_plain_backward_matches_jax_bwd_kernel(b, s, c_in):
     args, g = _inputs(b, s, c_in)
     want = jds._pallas_sandwich_bwd(*[jnp.asarray(a) for a in args],
                                     jnp.asarray(g), interpret=True)
-    before = ds.dense_sandwich_bwd.launches
+    before = _launches()
     got = ds.dense_sandwich_bwd(*_port(*args), torch.from_numpy(g))
-    assert ds.dense_sandwich_bwd.launches == before   # CPU: no launch
+    assert _launches() == before   # CPU: no launch
     assert got[0].dtype == torch.float32
     assert all(t.dtype == torch.float32 for t in got[1:])
     _assert_close(_to_jax_layout(got), want)
+
+
+@pytest.mark.parametrize("b,s,c_in", [(2, 15, 96), (2, 29, 192)])
+def test_plain_backward_matches_jax_bwd_kernel_bf16(b, s, c_in):
+    """B3 in bfloat16: x and g in bf16 through ``_pallas_sandwich_bwd``
+    interpreted and through the port's composed plain stages."""
+    args, g = _inputs(b, s, c_in)
+    bf = jnp.bfloat16
+    want = jds._pallas_sandwich_bwd(
+        jnp.asarray(args[0]).astype(bf), *[jnp.asarray(a) for a in args[1:]],
+        jnp.asarray(g).astype(bf), interpret=True)
+    pargs = list(_port(*args))
+    pargs[0] = pargs[0].to(torch.bfloat16)
+    got = ds.dense_sandwich_bwd(*pargs, torch.from_numpy(g).to(torch.bfloat16))
+    assert got[0].dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in got[1:])
+    _assert_close(_to_jax_layout(got), want, tol=BF16_TOL)
 
 
 def _to_flat(x):
@@ -107,6 +134,27 @@ def test_forward_and_backward_match_jax_flat_kernels():
     assert rel_l2(y_port.numpy(), _from_flat(y, s)) < 1e-5
     got = _to_jax_layout(ds.dense_sandwich_bwd(*pargs, torch.from_numpy(g)))
     _assert_close(got, (_from_flat(dxs, s), dw1, dscale, dshift, dw2))
+
+
+def test_backward_matches_jax_flat_kernels_bf16():
+    """B2b in bfloat16: ``dense_sandwich_flat``'s Pallas backward,
+    interpreted on the bf16 lead-frame stack, against the port's composed
+    plain stages."""
+    s = 15
+    args, g = _inputs(2, s, 96, seed=4)
+    bf = jnp.bfloat16
+    xs = _to_flat(jnp.asarray(args[0]).astype(bf))
+    jargs = (xs,) + tuple(jnp.asarray(a) for a in args[1:])
+    fn = lambda *a: jds.dense_sandwich_flat(  # noqa: E731
+        *a, s=s, interpret=True, pallas_bwd=True)
+    _, vjp = jax.vjp(fn, *jargs)
+    dxs, dw1, dscale, dshift, dw2 = vjp(_to_flat(jnp.asarray(g).astype(bf)))
+    pargs = list(_port(*args))
+    pargs[0] = pargs[0].to(torch.bfloat16)
+    got = _to_jax_layout(ds.dense_sandwich_bwd(
+        *pargs, torch.from_numpy(g).to(torch.bfloat16)))
+    want = (_from_flat(dxs.astype(jnp.float32), s), dw1, dscale, dshift, dw2)
+    _assert_close(got, want, tol=BF16_TOL)
 
 
 def test_nhwc_kernels_match_port():
@@ -190,6 +238,83 @@ def test_conv_bn_stats_gradients_match_jax():
     assert rel_l2(gw.numpy().transpose(2, 3, 1, 0), np.asarray(jgw)) < 1e-5
 
 
+@pytest.mark.parametrize("s", [1, 9, 15])
+@pytest.mark.parametrize("kind", ["dr", "dw2"])
+def test_shifted_window_at_image_edge(kind, s):
+    """The im2col of g that K1 (dr) and K4 (dw2) read, with every tap's
+    window crossing the border of an odd-sized image (S = 1: only the
+    centre tap sees a pixel): dr = G @ w2_rows(w2) is conv2's transpose,
+    dw2 = r^T @ G is ``torch.nn.grad.conv2d_weight``."""
+    rng = np.random.default_rng(11 + s)
+    b, c_mid = 2, 40
+    g = torch.from_numpy(rng.standard_normal((b, s, s, 48)).astype(np.float32))
+    g4 = g.permute(0, 3, 1, 2)
+    if kind == "dr":
+        w2 = torch.from_numpy(
+            rng.standard_normal((48, c_mid, 3, 3)).astype(np.float32))
+        got = ds.g_columns(g) @ ds.w2_rows(w2, torch.float32)
+        want = torch.nn.functional.conv_transpose2d(g4, w2, padding=1)
+        want = want.permute(0, 2, 3, 1).reshape(-1, c_mid)
+    else:
+        r = torch.from_numpy(
+            rng.standard_normal((b * s * s, c_mid)).astype(np.float32))
+        got = ds.bwd_dw2_reference(r, g)
+        r4 = r.view(b, s, s, c_mid).permute(0, 3, 1, 2)
+        want = torch.nn.grad.conv2d_weight(r4, (48, c_mid, 3, 3), g4,
+                                           padding=1)
+    assert got.shape == want.shape
+    assert rel_l2(got.numpy(), want.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_wrappers_run_plain_stages_on_cpu(dtype):
+    """Each kernel wrapper on CPU tensors returns its plain stage's result,
+    in the stated dtypes and layouts, and launches nothing; the backward is
+    their composition."""
+    args, g = _inputs(2, 9, 96, seed=12)
+    pargs = list(_port(*args))
+    pargs[0] = pargs[0].to(dtype)
+    gt = torch.from_numpy(g).to(dtype)
+    x, w1 = pargs[:2]
+    before = _launches()
+    r, dz, dscale, dshift = ds.bwd_recompute(*pargs, gt)
+    want = ds.bwd_recompute_reference(*pargs, gt)
+    for a, b in zip((r, dz, dscale, dshift), want):
+        assert torch.equal(a, b)
+    assert r.shape == dz.shape == (2 * 9 * 9, 9 * 48)
+    assert r.dtype == dz.dtype == dtype
+    assert dscale.dtype == dshift.dtype == torch.float32
+    assert bool((r >= 0).all())
+    dx = ds.bwd_dx(dz, w1, x.shape)
+    dw1 = ds.bwd_dw1(x, dz)
+    dw2 = ds.bwd_dw2(r, gt)
+    assert torch.equal(dx, ds.bwd_dx_reference(dz, w1, x.shape))
+    assert torch.equal(dw1, ds.bwd_dw1_reference(x, dz))
+    assert torch.equal(dw2, ds.bwd_dw2_reference(r, gt))
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dw1.shape == (9 * 48, 96, 1, 1) and dw2.shape == (48, 9 * 48, 3, 3)
+    assert _launches() == before
+    for a, b in zip(ds.dense_sandwich_bwd(*pargs, gt),
+                    (dx, dw1, dscale, dshift, dw2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stage", ["bwd_recompute", "bwd_dx", "bwd_dw1",
+                                   "bwd_dw2"])
+def test_stage_wrappers_reject_other_devices(stage):
+    args, g = _inputs(1, 9, 96)
+    x, w1, scale, shift, w2 = (t.to("meta") for t in _port(*args))
+    gm = torch.from_numpy(g).to("meta")
+    rows = torch.empty((81, 9 * 48), device="meta")
+    call = {"bwd_recompute": lambda: ds.bwd_recompute(x, w1, scale, shift,
+                                                      w2, gm),
+            "bwd_dx": lambda: ds.bwd_dx(rows, w1, x.shape),
+            "bwd_dw1": lambda: ds.bwd_dw1(x, rows),
+            "bwd_dw2": lambda: ds.bwd_dw2(rows, gm)}[stage]
+    with pytest.raises(ValueError, match="device"):
+        call()
+
+
 def test_bwd_wrapper_rejects_other_devices():
     args, g = _inputs(1, 15, 96)
     pargs = _port(*args)
@@ -213,3 +338,18 @@ def test_bwd_flop_and_byte_counts():
     n = ds.sandwich_bwd_bytes(1, 15, 96, 720, 2)
     assert n == (2 * (2 * 225 * 96 + 225 * 48 + 96 * 720 + 9 * 720 * 48)
                  + 4 * (4 * 720 + 96 * 720 + 9 * 720 * 48))
+
+
+@pytest.mark.parametrize("c_in", [96, 336])
+def test_bwd_stage_work_adds_up(c_in):
+    """The four kernels' operations add up to the backward's; each kernel's
+    bytes count its own inputs and outputs, r and dz included."""
+    work = ds.bwd_stage_work(16, 57, c_in, 2736, 2)
+    assert list(work) == [fn.__name__ for fn in ds.BWD_KERNELS]
+    assert sum(f for f, _ in work.values()) == ds.sandwich_bwd_flops(
+        16, 57, c_in, 2736)
+    pix = 16 * 57 * 57
+    assert work["bwd_dw2"] == (2 * pix * 2736 * 432,
+                               2 * (pix * 2736 + pix * 48) + 4 * 2736 * 432)
+    # K1 writes r and dz: 2 * P * C_mid elements in the compute dtype
+    assert work["bwd_recompute"][1] > 2 * 2 * pix * 2736
