@@ -13,7 +13,9 @@ Phases, one JSON line each:
                   output of the stage before, then composed against the
                   plain sandwich, at every S=57 layer and the first, a
                   middle and the last layer of the S=29 and S=15 blocks,
-                  batch 16, float32 and bfloat16, TF32 off;
+                  batch 1 and 16, float32 and bfloat16, TF32 off, with
+                  F1's and F2's split of K as the rule picks it; two
+                  calls and the captured call bit-equal;
   4. kernel_bwd - the four backward kernels (K1 recompute, K2 dx, K3 dw1,
                   K4 dw2), each against its plain stage fed the plain K1
                   outputs, then the composed backward against the plain
@@ -34,7 +36,8 @@ Phases, one JSON line each:
                   float32 step of batch 2 on the card against the CPU port;
   7. times      - the forward per S=57 layer (composed and per kernel,
                   plain, bound, the cuDNN sequence, transient peak
-                  memory); the backward per
+                  memory); F1 and F2 per dense block at batch 1 and 16,
+                  split as the rule picks and unsplit; the backward per
                   layer (composed and per kernel, plain, bound, library,
                   transient peak memory); serving forward and train step
                   time, img/s and the host time to enqueue;
@@ -228,7 +231,9 @@ phases 1, 2 and 14 (with no bare step to compare the CLI's with), and
 ``--augment-only`` phases 1, 2 and 15 (likewise), ``--distributed-only``
 phases 1, 2 and 16, ``--routing-only`` phases 1, 2, 3 and 4 at the S=29
 and S=15 layers only, and 17, ``--flat-only`` phases 1, 2 and 18,
-``--graph-only`` phases 1, 2 and 19; they
+``--graph-only`` phases 1, 2 and 19, ``--split-only`` phases 1, 2, 3,
+the split sweep (F1 and F2 timed at every split of K the rule may take,
+``phase_split_sweep``) and the forward times; they
 stop without the closing line (for
 work on one part).  ``--distributed-cli-rank <dir> -- <flags>`` is one
 rank of phase 16's cli.train run, started by torch.distributed.run.
@@ -381,6 +386,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, reps: int = 3) -> float:
+    """Device time of one ``fn()`` from ``iters`` calls captured as one
+    CUDA graph, the least of ``reps`` timed replays: what the served
+    forward's replay pays, without the host's launch time, which a small
+    kernel's eager calls would measure instead."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    del graph
+    return best
+
+
 def enqueue_ms(fn, iters: int = 3) -> float:
     """Host time to enqueue one ``fn()`` onto an idle card (the device
     finishes later).  Where it reaches the device time of ``fn``, the host,
@@ -395,13 +424,14 @@ def enqueue_ms(fn, iters: int = 3) -> float:
     return 1e3 * total / iters
 
 
-def sandwich_inputs(s: int, c_in: int, dt: torch.dtype, seed: int):
+def sandwich_inputs(s: int, c_in: int, dt: torch.dtype, seed: int,
+                    batch: int = BATCH):
     """Layer inputs on the card: x >= 0 (after norm1 + ReLU), weights at
     1/sqrt(fan_in) scale, a folded-BN affine near identity."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     c_mid = 48 * s
     dev = "cuda"
-    x = torch.randn(BATCH, s, s, c_in, generator=g, device=dev).relu_()
+    x = torch.randn(batch, s, s, c_in, generator=g, device=dev).relu_()
     w1 = torch.randn(c_mid, c_in, 1, 1, generator=g, device=dev) / c_in ** .5
     w2 = torch.randn(48, c_mid, 3, 3, generator=g, device=dev) / (
         9 * c_mid) ** .5
@@ -508,29 +538,67 @@ def fwd_stage_checks(args, dt):
     return rows
 
 
-def phase_kernel(shapes=CHECK_SHAPES):
+def fwd_splits_of(x, c_mid: int) -> dict:
+    """The blocks a tile F1 and F2 take for layer input ``x`` on this card
+    (``dense_sandwich.card_splits``)."""
+    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    b, s, _, c_in = x.shape
+    p, i = b * s * s, x.device.index
+    return {"fwd_expand": ds.card_splits(False, p, c_mid, c_in, x.dtype, i),
+            "fwd_taps": ds.card_splits(True, p, ds.GK, c_mid, x.dtype, i)}
+
+
+def replayed_equal(fn, want) -> bool:
+    """Whether ``fn()`` captured (core.graphs: eager, capture and replay,
+    replay) gives ``want`` bit for bit on both replays."""
+    from md_rdm_tpu_torch.core.graphs import Graphs
+    graphs = Graphs("cuda")
+    outs = [graphs.run("sandwich", fn) for _ in range(3)]
+    torch.cuda.synchronize()
+    return all(torch.equal(o, want) for o in outs[1:])
+
+
+def phase_kernel(shapes=CHECK_SHAPES, batches=(1, BATCH)):
+    """Forward kernels against their plain stages and the plain sandwich,
+    at batch 1 and 16; where F1 or F2 splits K (``splits``), two calls
+    must be bit-equal and the captured call bit-equal to the eager one
+    (``deterministic``, checked at every shape)."""
     from md_rdm_tpu_torch.core.device import no_tf32
     from md_rdm_tpu_torch.kernels.dense_sandwich import (
-        dense_sandwich, dense_sandwich_reference)
+        dense_sandwich, dense_sandwich_reference, pack_weights,
+        dense_sandwich_packed)
     rows = []
     with torch.inference_mode(), no_tf32():
-        for s, c_in in shapes:
-            i = CHECK_SHAPES.index((s, c_in))
-            for dt in DTYPES:
-                args = sandwich_inputs(s, c_in, dt, SEED + i)
-                stages = fwd_stage_checks(args, dt)
-                got = dense_sandwich(*args)
-                want = dense_sandwich_reference(*args)
-                torch.cuda.synchronize()
-                check(got.shape == want.shape and got.dtype == dt,
-                      f"kernel output {tuple(got.shape)} {got.dtype}")
-                err = rel_l2(got, want)
-                row = {"s": s, "c_in": c_in, "dtype": DT_NAME[dt],
-                       "rel_l2": err, "tol": TOL[dt],
-                       "max_abs_err": _max_abs(got, want), "stages": stages}
-                rows.append(row)
-                check(bool(torch.isfinite(got).all()), f"non-finite {row}")
-                check(err < TOL[dt], f"kernels disagree with plain {row}")
+        for batch in batches:
+            for s, c_in in shapes:
+                i = CHECK_SHAPES.index((s, c_in))
+                for dt in DTYPES:
+                    args = sandwich_inputs(s, c_in, dt, SEED + i, batch)
+                    stages = fwd_stage_checks(args, dt)
+                    got = dense_sandwich(*args)
+                    want = dense_sandwich_reference(*args)
+                    packed = pack_weights(*args[1:], dt)
+
+                    def call():
+                        return dense_sandwich_packed(args[0], packed)
+
+                    again = call()
+                    replayed = replayed_equal(call, again)
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape and got.dtype == dt,
+                          f"kernel output {tuple(got.shape)} {got.dtype}")
+                    err = rel_l2(got, want)
+                    row = {"batch": batch, "s": s, "c_in": c_in,
+                           "dtype": DT_NAME[dt], "rel_l2": err,
+                           "tol": TOL[dt], "max_abs_err": _max_abs(got, want),
+                           "splits": fwd_splits_of(args[0], 48 * s),
+                           "deterministic": bool(torch.equal(got, again)),
+                           "replay_equal": replayed, "stages": stages}
+                    rows.append(row)
+                    check(bool(torch.isfinite(got).all()), f"non-finite {row}")
+                    check(err < TOL[dt], f"kernels disagree with plain {row}")
+                    check(row["deterministic"] and replayed,
+                          f"forward not bit-equal call to call {row}")
     emit({"phase": "kernel", "checks": rows})
     return rows
 
@@ -967,7 +1035,10 @@ def phase_times_kernel(smi):
     the plain sandwich and the cuDNN sequence, with the function's bound
     and the transient peak memory of one call; then each kernel fed the
     plain output of the stage before against its plain stage, its own
-    bound and one PyTorch call computing the same product (F2 only)."""
+    bound and one PyTorch call computing the same product (F2 only).
+    Then F1 and F2 per dense block at batch 1 and 16, split as the rule
+    picks and unsplit (``split_block_times``), with the registry's split
+    and launch counters of F1 and F2 so far."""
     from md_rdm_tpu_torch.core.device import no_tf32
     from md_rdm_tpu_torch.kernels import dense_sandwich as ds
     rows = []
@@ -1014,8 +1085,123 @@ def phase_times_kernel(smi):
                              ds.sandwich_bytes(BATCH, 57, c_in, c_mid,
                                                x.element_size()), dt),
                     "transient_peak_gb": peak / 1e9, "kernels": stages})
-    emit({"phase": "times_kernel", "card": smi, "rows": rows})
+    blocks = [split_block_times(dt, batch) for batch in (1, BATCH)
+              for dt in DTYPES]
+    emit({"phase": "times_kernel", "card": smi, "rows": rows,
+          "blocks": blocks,
+          "split_counters": counts(ds.SPLIT_KERNELS, "split"),
+          "launch_counters": counts(ds.SPLIT_KERNELS)})
     return rows
+
+
+def split_block_times(dt, batch: int) -> dict:
+    """F1 and F2 over every layer of each live dense block at ``batch``,
+    each kernel alone (F2 fed F1's r), with the blocks a tile the rule
+    picks (``ms``) and unsplit (``unsplit_ms``, s = 1), in turns, device
+    time of captured launches (``graph_ms``), summed over the block's
+    layers; their bound, and the rule's splits per layer."""
+    from md_rdm_tpu_torch.core.device import no_tf32
+    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    out = {"batch": batch, "dtype": DT_NAME[dt], "blocks": []}
+    with torch.inference_mode(), no_tf32():
+        for s, n, c0 in ENCODER_BLOCKS:
+            c_mid = 48 * s
+            tot = {k: {"ms": 0.0, "unsplit_ms": 0.0, "bound_ms": 0.0,
+                       "splits": []} for k in ("fwd_expand", "fwd_taps")}
+            iters = 20 if batch == 1 else 5
+            for layer in range(n):
+                c_in = c0 + 48 * layer
+                args = sandwich_inputs(s, c_in, dt, 300 + layer, batch)
+                packed = ds.pack_weights(*args[1:], dt)
+                r = ds.fwd_expand(*args[:4], packed.w1t)
+                work = ds.fwd_stage_work(batch, s, c_in, c_mid,
+                                         args[0].element_size())
+                split = fwd_splits_of(args[0], c_mid)
+                calls = {
+                    "fwd_expand": lambda k: ds.fwd_expand(
+                        *args[:4], packed.w1t, splits=k),
+                    "fwd_taps": lambda k: ds.fwd_taps(
+                        r, args[4], packed.w2n, splits=k)}
+                for name, fn in calls.items():
+                    ms, unsplit = [], []
+                    for _ in range(2):   # in turns
+                        ms.append(graph_ms(lambda: fn(split[name]), iters))
+                        unsplit.append(graph_ms(lambda: fn(1), iters))
+                    row = tot[name]
+                    row["ms"] += min(ms)
+                    row["unsplit_ms"] += min(unsplit)
+                    row["bound_ms"] += _bound(*work[name], dt)["bound_ms"]
+                    row["splits"].append(split[name])
+                del r
+            out["blocks"].append({"s": s, "layers": n, **tot})
+    return out
+
+
+def phase_split_sweep(smi):
+    """F1 and F2 at every blocks-a-tile s the rule may take (1 to
+    MAX_CLUSTER, at least MIN_SLICE_K k tiles a slice, clusters the card
+    holds), at the first, a middle and the last layer of each live dense
+    block, batch 1 and 16, both dtypes: device time per s (``graph_ms``),
+    each s's output against s = 1's (TOL) and two calls bit-equal, the
+    card's clusters, the rule's modelled time and choice against the
+    fastest measured.  The rule's constants (``dense_sandwich.ALONE``,
+    ``SPLIT_COST``, ``MAX_CLUSTER``) are fitted to these rows."""
+    from md_rdm_tpu_torch.core.device import no_tf32
+    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    rows = []
+    with torch.inference_mode(), no_tf32():
+        for dt in DTYPES:
+            for batch in (1, BATCH):
+                for s, n, c0 in ENCODER_BLOCKS:
+                    c_mid = 48 * s
+                    for layer in sorted({0, n // 2, n - 1}):
+                        c_in = c0 + 48 * layer
+                        args = sandwich_inputs(s, c_in, dt, 400 + layer,
+                                               batch)
+                        packed = ds.pack_weights(*args[1:], dt)
+                        r = ds.fwd_expand(*args[:4], packed.w1t)
+                        p = batch * s * s
+                        for name, taps, nn, k, fn in (
+                                ("fwd_expand", False, c_mid, c_in,
+                                 lambda m: ds.fwd_expand(
+                                     *args[:4], packed.w1t, splits=m)),
+                                ("fwd_taps", True, ds.GK, c_mid,
+                                 lambda m: ds.fwd_taps(
+                                     r, args[4], packed.w2n, splits=m))):
+                            rows.append(sweep_row(ds, name, taps, fn, dt,
+                                                  batch, s, c_in, p, nn, k))
+                        del r
+    emit({"phase": "split_sweep", "card": smi, "rows": rows})
+    return rows
+
+
+def sweep_row(ds, name, taps, fn, dt, batch, s, c_in, p, n, k):
+    tiles, kt = ds.product_tiles(p, n, k, dt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 20 if batch == 1 else 5
+    one = fn(1)
+    ms, clusters, model = {}, {}, {}
+    for m in range(1, max(1, min(ds.MAX_CLUSTER,
+                                 kt // ds.MIN_SLICE_K)) + 1):
+        c = ds.card_clusters(taps, m, dt, 0)
+        if c <= 0:
+            check(m > 1, f"{name}: the card holds no block")
+            continue
+        got, again = fn(m), fn(m)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} s={m} not bit-equal")
+        err = rel_l2(got, one)
+        check(err < TOL[dt], f"{name} s={m} against s=1: {err}")
+        clusters[m] = c
+        model[m] = ds.split_time(tiles, kt, m, c, sms, dt)
+        ms[m] = graph_ms(lambda: fn(m), iters)
+    rule = ds.card_splits(taps, p, n, k, dt, 0)
+    best = min(ms, key=ms.get)
+    return {"kernel": name, "dtype": DT_NAME[dt], "batch": batch, "s": s,
+            "c_in": c_in, "tiles": tiles, "k_tiles": kt, "sms": sms,
+            "rule": rule, "best": best, "rule_over_best": ms[rule] / ms[best],
+            "rule_over_unsplit": ms[rule] / ms[1], "ms": ms,
+            "clusters": clusters, "model": model}
 
 
 def phase_times_serve(preds, requests, smi):
@@ -4957,6 +5143,11 @@ def main() -> int:
     count_replays()
     smi = phase_device()
     phase_build()
+    if "--split-only" in sys.argv[1:]:
+        phase_kernel()
+        phase_split_sweep(smi)
+        phase_times_kernel(smi)
+        return 0
     if "--forward-only" in sys.argv[1:]:
         phase_kernel()
         phase_times_kernel(smi)

@@ -42,6 +42,26 @@
 // and reread x once per chunk: 64.37 / 10.83 ms against the cuDNN
 // sequence's 57.75 / 9.09 on the same card.
 //
+// Split of K in F1 and F2.  A block owns one 128 x 128 output tile and
+// runs all of K, so where the tiles cannot fill the card (batch 1: at S=15
+// F1 has 12 tiles and F2 8, against 264 blocks a wave) each tile's K runs
+// as s slices on s blocks (grid z = s), the s blocks one thread-block
+// cluster of 1 x 1 x s (cudaLaunchKernelEx).  Each block runs the same
+// mainloop on its slice and stores its partial tile in its own shared
+// memory; after a cluster barrier the block of rank j sums rows
+// [128j/s, 128(j+1)/s) of every block's partial tile (distributed shared
+// memory) in rank order and runs the kernel's own epilogue on them, and a
+// second barrier keeps each block's shared memory until its peers have
+// read it.  No workspace, no atomics, no extra launch: two calls and a
+// graph replay give the same bits, and s = 1 is the unsplit kernel.  s (1
+// to 8, the portable cluster size) comes from
+// kernels/dense_sandwich.py::k_splits, a model of waves of clusters times
+// the slice fitted on this card.  Measured, float32, F1 + F2 over every
+// layer of the live encoder, device time of captured launches: batch 1
+// 12.07 -> 4.48 ms against a bound of 1.69 (S=15 7.35 -> 1.36, S=29 2.30
+// -> 0.93, S=57 2.42 -> 2.20); batch 16 47.70 -> 46.04 against 27.08 (S=15
+// 11.17 -> 9.52, the others unchanged) (NVIDIA H100 80GB HBM3, 700 W).
+//
 // Backward: replaces ::_bwd_kernel (pallas_call in _pallas_sandwich_bwd)
 // and ::_bwd_kernel_flat; computes dense_sandwich_nhwc.py::_bwd_kernel too.
 // Per pixel p and channel k of z:
@@ -80,6 +100,7 @@
 // warp groups of one block, each with its own pipeline and named barrier;
 // the other kernels run two 8-warp blocks per SM.  F3 is a pass over
 // memory, one thread per pixel and four channels.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -429,11 +450,15 @@ template <> struct Pair<float> {
     static __device__ __forceinline__ float2 make(float a, float b) {
         return make_float2(a, b);
     }
+    static __device__ __forceinline__ float one(float a) { return a; }
 };
 template <> struct Pair<bf16> {
     using type = __nv_bfloat162;
     static __device__ __forceinline__ __nv_bfloat162 make(float a, float b) {
         return __floats2bfloat162_rn(a, b);
+    }
+    static __device__ __forceinline__ bf16 one(float a) {
+        return __float2bfloat16_rn(a);
     }
 };
 template <typename T>
@@ -457,6 +482,68 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], O* out,
     }
 }
 
+// ---- K split across a thread-block cluster (F1, F2) ----------------------
+// Launched with gridDim.z = s > 1, the s blocks of one output tile form one
+// cluster (dims 1 x 1 x s), and block z sums k tiles [kt*z/s, kt*(z+1)/s)
+// of the kt; with s = 1 the block sums all of K, as without the split.
+__device__ __forceinline__ void k_slice(int kt, int& k0, int& nk) {
+    const int z = blockIdx.z, s = gridDim.z;
+    k0 = kt * z / s;
+    nk = kt * (z + 1) / s - k0;
+}
+
+// float32 rows of a partial tile in shared memory
+constexpr int LDE = BN + 4;
+constexpr int PARTIAL_BYTES = BM * LDE * 4;
+
+// The cluster's partial tiles summed: each block stores its accumulator
+// (T's layout) into its own shared memory as [BM][LDE] floats; after the
+// cluster's barrier, the block of rank j owns rows [BM*j/s, BM*(j+1)/s) and
+// reads them from every block's shared memory (distributed shared memory),
+// summing in rank order 0..s-1, VE columns per thread at a time, which it
+// hands to out(row, col, v).  The second barrier keeps each block's shared
+// memory alive until every peer has read it.  The caller's mainloop ended
+// on a barrier, so its shared memory is free; it holds PARTIAL_BYTES.
+template <typename T, int VE, class Out>
+__device__ __forceinline__ void cluster_sum(const float (&acc)[64],
+                                            unsigned char* smem, Out out) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int e = 0; e < 64; e += 2) {
+        int row, col;
+        acc_pos<T>(threadIdx.x, e, row, col);
+        *reinterpret_cast<float2*>(part + row * LDE + col) =
+            make_float2(acc[e], acc[e + 1]);
+    }
+    cluster.sync();
+    const int s = gridDim.z, j = (int)cluster.block_rank();
+    const int r0 = BM * j / s, r1 = BM * (j + 1) / s;
+    constexpr int VPR = BN / VE;
+    for (int v = threadIdx.x; v < (r1 - r0) * VPR; v += NTHREAD) {
+        const int row = r0 + v / VPR, col = (v % VPR) * VE;
+        float sum[VE];
+#pragma unroll
+        for (int i = 0; i < VE; ++i) sum[i] = 0.f;
+#pragma unroll 4
+        for (int b = 0; b < s; ++b) {
+            const float* src =
+                cluster.map_shared_rank(part, b) + row * LDE + col;
+#pragma unroll
+            for (int i = 0; i < VE; i += 4) {
+                const float4 f = *reinterpret_cast<const float4*>(src + i);
+                sum[i] += f.x;
+                sum[i + 1] += f.y;
+                sum[i + 2] += f.z;
+                sum[i + 3] += f.w;
+            }
+        }
+        out(row, col, sum);
+    }
+    cluster.sync();
+}
+
 // ---- F1: r = relu((x @ w1t) * scale + shift) ------------------------------
 // The tile of r meets in shared memory as [BM][LDR] T, so that it leaves
 // row by row in 16-byte vectors: the accumulator layout alone would store
@@ -478,11 +565,30 @@ fwd_expand(const T* __restrict__ x, const T* __restrict__ w1t,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     using RT = RTile<T>;
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+    int k0, nk;
+    k_slice(c_in / Cfg<T>::BK, k0, nk);
     float acc[64] = {};
     mainloop<T, true>(acc, Dense<T>{x, c_in, p, c_in},
-                      Dense<T>{w1t, c_mid, c_in, c_mid}, m0, n0, 0,
-                      c_in / Cfg<T>::BK, smem_raw, threadIdx.x, 0);
+                      Dense<T>{w1t, c_mid, c_in, c_mid}, m0, n0,
+                      k0 * Cfg<T>::BK, nk, smem_raw, threadIdx.x, 0);
     // the mainloop ends on a barrier: its shared memory is free
+    if (gridDim.z > 1) {
+        cluster_sum<T, RT::VE>(acc, smem_raw, [&](int row, int col,
+                                                  const float* v) {
+            const int q = m0 + row, k = n0 + col;
+            if (q >= p || k >= c_mid) return;   // whole vectors, as below
+            alignas(16) T o[RT::VE];
+#pragma unroll
+            for (int i = 0; i < RT::VE; ++i) {
+                const float a = fmaf(v[i], __ldg(scale + k + i),
+                                     __ldg(shift + k + i));
+                o[i] = Pair<T>::one(a > 0.f ? a : 0.f);
+            }
+            *reinterpret_cast<uint4*>(r + (size_t)q * c_mid + k) =
+                *reinterpret_cast<const uint4*>(o);
+        });
+        return;
+    }
     T* tile = reinterpret_cast<T*>(smem_raw);
 #pragma unroll
     for (int e = 0; e < 64; e += 2) {
@@ -516,10 +622,22 @@ fwd_taps(const T* __restrict__ r, const T* __restrict__ w2n,
          float* __restrict__ taps, int p, int c_mid) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+    int k0, nk;
+    k_slice(c_mid / Cfg<T>::BK, k0, nk);
     float acc[64] = {};
     mainloop<T, true>(acc, Dense<T>{r, c_mid, p, c_mid},
-                      Dense<T>{w2n, GK, c_mid, GK}, m0, n0, 0,
-                      c_mid / Cfg<T>::BK, smem_raw, threadIdx.x, 0);
+                      Dense<T>{w2n, GK, c_mid, GK}, m0, n0,
+                      k0 * Cfg<T>::BK, nk, smem_raw, threadIdx.x, 0);
+    if (gridDim.z > 1) {
+        cluster_sum<T, 4>(acc, smem_raw, [&](int row, int col,
+                                             const float* v) {
+            const int q = m0 + row, c = n0 + col;
+            if (q < p && c < GK)   // 432 is a multiple of 4: whole vectors
+                *reinterpret_cast<float4*>(taps + (size_t)q * GK + c) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+        });
+        return;
+    }
     store_tile<T>(acc, taps, m0, n0, p, GK);
 }
 
@@ -562,10 +680,10 @@ fwd_tapsum(const float* __restrict__ taps, T* __restrict__ y, int s, int p,
 // the SM holds 16 warps although each thread keeps one accumulator.  Both
 // tiles then meet in shared memory, and all 512 threads write r and dz
 // row by row.
-constexpr int LDE = BN + 4;   // float rows of the z and dr tiles
+// The z and dr tiles are [BM][LDE] float32 each.
 template <typename T> __host__ __device__ constexpr int k1_smem_bytes() {
-    return 2 * smem_bytes<T>() > 2 * BM * LDE * 4 ? 2 * smem_bytes<T>()
-                                                  : 2 * BM * LDE * 4;
+    return 2 * smem_bytes<T>() > 2 * PARTIAL_BYTES ? 2 * smem_bytes<T>()
+                                                   : 2 * PARTIAL_BYTES;
 }
 
 template <typename T>
@@ -742,6 +860,14 @@ bool bad_ld(int batch, int s, int ld) {
     return ld < G || ld % G || (long long)batch * s * s * ld >= (1LL << 31);
 }
 
+// F1's and F2's blocks a tile: 1 to MAX_SPLITS (the portable cluster
+// size), at most one a k tile.
+constexpr int MAX_SPLITS = 8;
+bool bad_splits(int splits, int k, int is_bf16) {
+    return splits < 1 || splits > MAX_SPLITS ||
+           splits > k / (is_bf16 ? Cfg<bf16>::BK : Cfg<float>::BK);
+}
+
 // K slices for a split-K product with `tiles` output tiles: enough blocks
 // for four per SM, each slice a whole number of k tiles.
 int slice_len(int p, int tiles, int bk) {
@@ -754,30 +880,84 @@ int slice_len(int p, int tiles, int bk) {
     return (per + bk - 1) / bk * bk;
 }
 
+// Dynamic shared memory of F1 and F2, split (s > 1: the partial tile too)
+// or not; both stay two blocks per SM.  Each kernel's limit is set to the
+// split size (a limit alone: a launch asks for its own), so that a
+// captured launch of either size finds it set.
+template <typename T> constexpr int fwd_smem_bytes(bool taps, bool split) {
+    const int own = taps ? smem_bytes<T>() : expand_smem_bytes<T>();
+    return split && PARTIAL_BYTES > own ? PARTIAL_BYTES : own;
+}
+
+// A launch of a forward kernel over grid (gx, gy) of output tiles: with
+// splits = 1 a plain launch, else gridDim.z = splits with each tile's
+// blocks as one cluster of 1 x 1 x splits.
+cudaLaunchConfig_t fwd_config(int gx, int gy, int splits, int bytes,
+                              cudaStream_t st, cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(gx, gy, splits);
+    cfg.blockDim = dim3(NTHREAD);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = 1;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = splits;
+    cfg.attrs = attr;
+    cfg.numAttrs = splits > 1 ? 1 : 0;
+    return cfg;
+}
+
 template <typename T>
 int launch_expand(const void* x, const void* w1t, const void* scale,
                   const void* shift, void* r, int p, int c_in, int c_mid,
-                  cudaStream_t st) {
-    cudaError_t err = allow_smem(fwd_expand<T>, expand_smem_bytes<T>());
+                  int splits, cudaStream_t st) {
+    cudaError_t err =
+        allow_smem(fwd_expand<T>, fwd_smem_bytes<T>(false, true));
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((c_mid + BN - 1) / BN, (p + BM - 1) / BM);
-    fwd_expand<T><<<grid, NTHREAD, expand_smem_bytes<T>(), st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w1t),
-        static_cast<const float*>(scale), static_cast<const float*>(shift),
-        static_cast<T*>(r), p, c_in, c_mid);
-    return (int)cudaGetLastError();
+    const int bytes = fwd_smem_bytes<T>(false, splits > 1);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = fwd_config(
+        (c_mid + BN - 1) / BN, (p + BM - 1) / BM, splits, bytes, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, fwd_expand<T>, static_cast<const T*>(x),
+                             static_cast<const T*>(w1t),
+                             static_cast<const float*>(scale),
+                             static_cast<const float*>(shift),
+                             static_cast<T*>(r), p, c_in, c_mid);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
 int launch_taps(const void* r, const void* w2n, void* taps, int p, int c_mid,
-                cudaStream_t st) {
-    cudaError_t err = allow_smem(fwd_taps<T>, smem_bytes<T>());
+                int splits, cudaStream_t st) {
+    cudaError_t err = allow_smem(fwd_taps<T>, fwd_smem_bytes<T>(true, true));
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((GK + BN - 1) / BN, (p + BM - 1) / BM);
-    fwd_taps<T><<<grid, NTHREAD, smem_bytes<T>(), st>>>(
-        static_cast<const T*>(r), static_cast<const T*>(w2n),
-        static_cast<float*>(taps), p, c_mid);
-    return (int)cudaGetLastError();
+    const int bytes = fwd_smem_bytes<T>(true, splits > 1);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = fwd_config(
+        (GK + BN - 1) / BN, (p + BM - 1) / BM, splits, bytes, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, fwd_taps<T>, static_cast<const T*>(r),
+                             static_cast<const T*>(w2n),
+                             static_cast<float*>(taps), p, c_mid);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Clusters of `splits` blocks of F1 (taps 0) or F2 (taps 1) that the card
+// holds at once (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+template <typename T>
+int max_clusters(int taps, int splits) {
+    cudaError_t err = taps
+        ? allow_smem(fwd_taps<T>, fwd_smem_bytes<T>(true, true))
+        : allow_smem(fwd_expand<T>, fwd_smem_bytes<T>(false, true));
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = fwd_config(
+        1, 1, splits, fwd_smem_bytes<T>(taps, splits > 1), nullptr, &attr);
+    cfg.numAttrs = 1;   // clusters of one block where splits = 1
+    int n = 0;
+    if (err == cudaSuccess)
+        err = taps ? cudaOccupancyMaxActiveClusters(&n, fwd_taps<T>, &cfg)
+                   : cudaOccupancyMaxActiveClusters(&n, fwd_expand<T>, &cfg);
+    return err != cudaSuccess ? -(int)err : n;
 }
 
 template <typename T>
@@ -870,21 +1050,31 @@ extern "C" {
 
 int sandwich_fwd_expand(const void* x, const void* w1t, const void* scale,
                         const void* shift, void* r, int p, int c_in,
-                        int c_mid, int is_bf16, void* stream) {
-    if (bad_rows(p, c_in, c_mid)) return (int)cudaErrorInvalidValue;
+                        int c_mid, int splits, int is_bf16, void* stream) {
+    if (bad_rows(p, c_in, c_mid) || bad_splits(splits, c_in, is_bf16))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return is_bf16
-        ? launch_expand<bf16>(x, w1t, scale, shift, r, p, c_in, c_mid, st)
-        : launch_expand<float>(x, w1t, scale, shift, r, p, c_in, c_mid, st);
+        ? launch_expand<bf16>(x, w1t, scale, shift, r, p, c_in, c_mid,
+                              splits, st)
+        : launch_expand<float>(x, w1t, scale, shift, r, p, c_in, c_mid,
+                               splits, st);
 }
 
 int sandwich_fwd_taps(const void* r, const void* w2n, void* taps, int p,
-                      int c_mid, int is_bf16, void* stream) {
-    if (bad_rows(p, G, c_mid) || (long long)p * GK >= (1LL << 31))
+                      int c_mid, int splits, int is_bf16, void* stream) {
+    if (bad_rows(p, G, c_mid) || (long long)p * GK >= (1LL << 31) ||
+        bad_splits(splits, c_mid, is_bf16))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? launch_taps<bf16>(r, w2n, taps, p, c_mid, st)
-                   : launch_taps<float>(r, w2n, taps, p, c_mid, st);
+    return is_bf16 ? launch_taps<bf16>(r, w2n, taps, p, c_mid, splits, st)
+                   : launch_taps<float>(r, w2n, taps, p, c_mid, splits, st);
+}
+
+int sandwich_fwd_clusters(int taps, int splits, int is_bf16) {
+    if (splits < 1 || splits > MAX_SPLITS) return -(int)cudaErrorInvalidValue;
+    return is_bf16 ? max_clusters<bf16>(taps, splits)
+                   : max_clusters<float>(taps, splits);
 }
 
 int sandwich_fwd_tapsum(const void* taps, void* y, int batch, int s,

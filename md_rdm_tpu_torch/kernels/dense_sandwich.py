@@ -8,9 +8,11 @@ tensors :func:`dense_sandwich` runs three hand-written kernels of
 affine and ReLU), F2 :func:`fwd_taps` (the nine 3x3 taps as one product
 with r) and F3 :func:`fwd_tapsum` (the taps' shifted windows summed); the
 source's header states the kernels' bound on an H100 and what the design
-does about it.  On CPU tensors, and only there, it runs their plain
-stages composed (:func:`fwd_stages_reference`: the kernels' function and
-dtype semantics; :func:`dense_sandwich_reference` is the unrouted layer's,
+does about it.  Where a product's tiles cannot fill the card, F1 and F2
+split K across a thread-block cluster (:func:`k_splits`).  On CPU
+tensors, and only there, it runs their plain stages composed
+(:func:`fwd_stages_reference`: the kernels' function and dtype
+semantics; :func:`dense_sandwich_reference` is the unrouted layer's,
 which in bfloat16 also rounds z before the affine).
 
 Layouts: ``x`` is NHWC ``[B, S, S, C_in]`` in the compute dtype (float32
@@ -32,13 +34,15 @@ port of ``_kernel_flat`` / ``_bwd_kernel_flat``'s block-native I/O: F3
 writes y by row stride into the block's buffer, K1 and K4 read the
 cotangent by row stride from the block's cotangent).  Each kernel's
 wrapper counts its launches (``kernel.<name>.launches`` in
-``core/trace.py``) and has its plain stage beside it.
+``core/trace.py``; F1 and F2 also ``kernel.<name>.split``) and has its
+plain stage beside it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+import math
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -185,8 +189,8 @@ def dense_sandwich_reference(x, w1, scale, shift, w2):
 def _lib():
     """The sandwich kernels' C launchers, built and loaded at first use."""
     lib = _build.load("dense_sandwich")
-    for name, n_ptr, n_int in (("sandwich_fwd_expand", 5, 4),
-                               ("sandwich_fwd_taps", 3, 3),
+    for name, n_ptr, n_int in (("sandwich_fwd_expand", 5, 5),
+                               ("sandwich_fwd_taps", 3, 4),
                                ("sandwich_fwd_tapsum", 2, 4),
                                ("sandwich_bwd_recompute", 10, 6),
                                ("sandwich_bwd_dx", 3, 5),
@@ -196,6 +200,8 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.sandwich_fwd_clusters.argtypes = [ctypes.c_int] * 3
+    lib.sandwich_fwd_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -471,11 +477,110 @@ def fwd_stages_reference(x, w1, scale, shift, w2, out=None):
     return fwd_tapsum_reference(taps, x.dtype, out)
 
 
-def fwd_expand(x, w1, scale, shift, w1t=None):
+# ---- K split across a thread-block cluster (F1, F2) -------------------------
+# Each block of F1 and F2 computes one TILE x TILE output tile.  Where a
+# product has too few tiles to fill the card (batch 1, S=15), each tile's K
+# range runs as s slices, one block a slice; the s blocks of a tile form one
+# thread-block cluster, which sums their partial tiles through distributed
+# shared memory in a fixed order (``csrc/dense_sandwich.cu::cluster_sum``):
+# no workspace, no atomics, two calls bit-equal.  :func:`k_splits` picks s
+# from the shape, the card's SMs and the clusters it holds at once
+# (``cudaOccupancyMaxActiveClusters``), once per shape.  Its constants come
+# from chip_smoke.py --split-only (F1 and F2 at every s from 1 to 16, then
+# to 8, on three layers of each live block, batch 1 and 16, both dtypes;
+# device time of captured launches; NVIDIA H100 80GB HBM3, 700 W): the
+# rule's choice is within 7% (float32) and 9% (bfloat16) of the fastest s
+# measured at every shape.
+
+TILE = 128
+K_TILE = {torch.float32: 16, torch.bfloat16: 48}   # the mainloops' k tiles
+# Clusters of 9 to 16 blocks (not portable) beat 8 on 3 of 32 shapes, by
+# at most 8% (F2 at S=15, batch 1).
+MAX_CLUSTER = 8
+MIN_SLICE_K = 4      # k tiles a slice keeps at least
+# The kernels run two blocks per SM; a block alone on its SM runs a k tile
+# in this share of a paired block's time (float32: 1.44 against 2.65 us;
+# bfloat16 fitted to the sweep with SPLIT_COST).
+ALONE = {torch.float32: 0.55, torch.bfloat16: 0.7}
+# The cluster's reduction (two cluster barriers, the partial tiles through
+# shared memory), in k tiles of one block.
+SPLIT_COST = {torch.float32: 1.0, torch.bfloat16: 6.0}
+# Of two splits within this share of the least modelled time, the smaller.
+SPLIT_TIE = 0.05
+
+
+def product_tiles(p: int, n: int, k: int, dtype: torch.dtype):
+    """(output tiles, k tiles) of F1's or F2's product [p, k] @ [k, n]."""
+    return -(-p // TILE) * -(-n // TILE), k // K_TILE[dtype]
+
+
+def split_time(tiles: int, k_tiles: int, s: int, clusters: int, sms: int,
+               dtype: torch.dtype) -> float:
+    """Modelled time, in k tiles of a block sharing its SM, of ``tiles``
+    output tiles over ``k_tiles`` with ``s`` blocks a tile, where the card
+    (``sms`` SMs) holds ``clusters`` clusters of ``s`` blocks at once: per
+    wave of clusters the longest slice plus the reduction's cost where
+    ``s`` > 1, at :data:`ALONE`'s rate where the wave leaves each SM one
+    block at most."""
+    step = math.ceil(k_tiles / s) + (SPLIT_COST[dtype] if s > 1 else 0.0)
+    full, rest = divmod(tiles, clusters)
+
+    def wave(n):
+        return step * (1.0 if n * s > sms else ALONE[dtype])
+
+    return full * wave(clusters) + (wave(rest) if rest else 0.0)
+
+
+def k_splits(tiles: int, k_tiles: int, clusters: Callable[[int], int],
+             sms: int, dtype: torch.dtype) -> int:
+    """The blocks a tile, 1 to :data:`MAX_CLUSTER`, of least modelled time
+    (:func:`split_time`), each slice at least :data:`MIN_SLICE_K` whole k
+    tiles, the smaller on a near tie (:data:`SPLIT_TIE`).  ``clusters(s)``:
+    the clusters of ``s`` blocks the card holds at once (0 where none)."""
+    times = {1: split_time(tiles, k_tiles, 1, clusters(1), sms, dtype)}
+    for s in range(2, min(MAX_CLUSTER, k_tiles // MIN_SLICE_K) + 1):
+        n = clusters(s)
+        if n > 0:
+            times[s] = split_time(tiles, k_tiles, s, n, sms, dtype)
+    best = min(times.values())
+    return min(s for s, t in times.items() if t <= best * (1 + SPLIT_TIE))
+
+
+def fwd_splits(p: int, n: int, k: int, dtype: torch.dtype,
+               clusters: Callable[[int], int], sms: int) -> int:
+    """:func:`k_splits` of F1's or F2's product [p, k] @ [k, n]."""
+    tiles, k_tiles = product_tiles(p, n, k, dtype)
+    return k_splits(tiles, k_tiles, clusters, sms, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def card_clusters(taps: bool, s: int, dtype: torch.dtype, index: int) -> int:
+    """Clusters of ``s`` blocks of F2 (``taps``) or F1 that card ``index``
+    holds at once."""
+    with torch.cuda.device(index):
+        n = _lib().sandwich_fwd_clusters(int(taps), s,
+                                         int(dtype == torch.bfloat16))
+    if n < 0:
+        raise RuntimeError(f"sandwich_fwd_clusters: cudaError {-n}")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def card_splits(taps: bool, p: int, n: int, k: int, dtype: torch.dtype,
+                index: int) -> int:
+    """:func:`fwd_splits` on card ``index``, once per shape."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return fwd_splits(p, n, k, dtype,
+                      lambda s: card_clusters(taps, s, dtype, index), sms)
+
+
+def fwd_expand(x, w1, scale, shift, w1t=None, splits=None):
     """F1: r as :func:`fwd_expand_reference` returns it.  CPU tensors take
     that plain version; CUDA tensors launch the kernel (counted in
-    ``kernel.fwd_expand.launches``) or raise.  ``w1t`` is :func:`w1_cols`
-    of w1, made here if not given."""
+    ``kernel.fwd_expand.launches``, and in ``kernel.fwd_expand.split``
+    where K is split) or raise.  ``w1t`` is :func:`w1_cols` of w1, made
+    here if not given.  ``splits``: the blocks a tile, :func:`card_splits`
+    where None (others are for measurement)."""
     if not _on_card("fwd_expand", x):
         return fwd_expand_reference(x, w1, scale, shift)
     _check(x, w1, scale, shift)
@@ -486,19 +591,24 @@ def fwd_expand(x, w1, scale, shift, w1t=None):
     _check_operand("fwd_expand", "w1t", w1t, (c_in, c_mid), dt, dev)
     scale = scale.detach().contiguous()
     shift = shift.detach().contiguous()
-    r = torch.empty((b * s * s, c_mid), dtype=dt, device=dev)
+    p = b * s * s
+    if splits is None:
+        splits = card_splits(False, p, c_mid, c_in, dt, dev.index)
+    r = torch.empty((p, c_mid), dtype=dt, device=dev)
     _launch("sandwich_fwd_expand", dev, x.data_ptr(), w1t.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), r.data_ptr(), b * s * s,
-            c_in, c_mid, int(dt == torch.bfloat16))
+            scale.data_ptr(), shift.data_ptr(), r.data_ptr(), p, c_in,
+            c_mid, splits, int(dt == torch.bfloat16))
     trace.count("kernel.fwd_expand.launches")
+    trace.count("kernel.fwd_expand.split", int(splits > 1))
     return r
 
 
-def fwd_taps(r, w2, w2n=None):
+def fwd_taps(r, w2, w2n=None, splits=None):
     """F2: T9 as :func:`fwd_taps_reference` returns it.  CPU tensors take
     that plain version; CUDA tensors launch the kernel (counted in
-    ``kernel.fwd_taps.launches``) or raise.  ``w2n`` is :func:`w2_cols` of w2,
-    made here if not given."""
+    ``kernel.fwd_taps.launches``, and in ``kernel.fwd_taps.split`` where K
+    is split) or raise.  ``w2n`` is :func:`w2_cols` of w2, made here if not
+    given.  ``splits``: as :func:`fwd_expand`'s."""
     if not _on_card("fwd_taps", r):
         return fwd_taps_reference(r, w2)
     p, c_mid = r.shape
@@ -509,10 +619,13 @@ def fwd_taps(r, w2, w2n=None):
         w2n = w2_cols(w2, dt).contiguous()
     _check_operand("fwd_taps", "r", r, (p, c_mid), dt, dev)
     _check_operand("fwd_taps", "w2n", w2n, (c_mid, GK), dt, dev)
+    if splits is None:
+        splits = card_splits(True, p, GK, c_mid, dt, dev.index)
     taps = torch.empty((p, GK), dtype=torch.float32, device=dev)
     _launch("sandwich_fwd_taps", dev, r.data_ptr(), w2n.data_ptr(),
-            taps.data_ptr(), p, c_mid, int(dt == torch.bfloat16))
+            taps.data_ptr(), p, c_mid, splits, int(dt == torch.bfloat16))
     trace.count("kernel.fwd_taps.launches")
+    trace.count("kernel.fwd_taps.split", int(splits > 1))
     return taps
 
 
@@ -542,6 +655,9 @@ def fwd_tapsum(taps, dtype, out=None):
 
 
 FWD_KERNELS = (fwd_expand, fwd_taps, fwd_tapsum)
+# The kernels that also count, in ``kernel.<name>.split``, the launches
+# that split K across a cluster (0 added where they did not).
+SPLIT_KERNELS = (fwd_expand, fwd_taps)
 
 
 # ---- backward: four kernels ------------------------------------------------

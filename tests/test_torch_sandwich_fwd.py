@@ -187,3 +187,105 @@ def test_fwd_stage_work_adds_up(s, c_in):
     assert work["fwd_tapsum"][1] == 4 * pix * 432 + 2 * pix * 48
     # F1 writes r: P * C_mid elements in the compute dtype
     assert work["fwd_expand"][1] > 2 * pix * c_mid
+
+
+# ---- the split of K across a thread-block cluster (F1, F2) ------------------
+# Clusters of s blocks of F1 and F2 that an H100 80GB HBM3 (132 SMs) holds
+# at once (cudaOccupancyMaxActiveClusters, the same for both kernels and
+# dtypes; chip_smoke.py --split-only prints them).
+H100_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
+H100_SMS = 132
+LIVE_BLOCKS = {57: (6, 96), 29: (12, 192), 15: (36, 384)}
+
+
+def _live_products(batch, s, kernel):
+    """(p, n, k) of F1's or F2's product at every layer of the live
+    encoder's dense block at size ``s``."""
+    n_layers, c0 = LIVE_BLOCKS[s]
+    p, c_mid = batch * s * s, 48 * s
+    return [(p, c_mid, c0 + 48 * i) if kernel == "fwd_expand"
+            else (p, ds.GK, c_mid) for i in range(n_layers)]
+
+
+def _clusters(s):
+    return H100_CLUSTERS.get(s, 0)
+
+
+# (batch, S, kernel) where the float32 rule must split K on every layer of
+# the block, and where it must never.
+SPLIT = {(1, 15, "fwd_expand"), (1, 15, "fwd_taps"), (16, 15, "fwd_expand"),
+         (1, 29, "fwd_taps")}
+UNSPLIT = {(16, 57, "fwd_expand")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fwd_expand", "fwd_taps"])
+@pytest.mark.parametrize("batch,s", [(b, s) for b in (1, 16)
+                                     for s in (57, 29, 15)])
+def test_split_rule_on_live_shapes(batch, s, kernel, dtype):
+    """The rule's blocks a tile at each live layer: whole slices of at
+    least MIN_SLICE_K k tiles, at most MAX_CLUSTER (8, portable), never a
+    modelled time above s = 1's; S=57 F1 at batch 16 unsplit; F1 at S=15
+    and F2 at S=29 and S=15 at batch 1, and F1 at S=15 at batch 16,
+    split (float32, the cells' dtype)."""
+    chosen = []
+    for p, n, k in _live_products(batch, s, kernel):
+        tiles, k_tiles = ds.product_tiles(p, n, k, dtype)
+        m = ds.fwd_splits(p, n, k, dtype, _clusters, H100_SMS)
+        assert 1 <= m <= ds.MAX_CLUSTER == 8
+        assert m == 1 or k_tiles // m >= ds.MIN_SLICE_K
+        assert (ds.split_time(tiles, k_tiles, m, _clusters(m), H100_SMS,
+                              dtype)
+                <= ds.split_time(tiles, k_tiles, 1, _clusters(1), H100_SMS,
+                                 dtype))
+        chosen.append(m)
+    if dtype == torch.float32 and (batch, s, kernel) in SPLIT:
+        assert min(chosen) > 1, chosen
+    if (batch, s, kernel) in UNSPLIT:
+        assert set(chosen) == {1}
+
+
+def test_split_time_counts_waves_and_lone_blocks():
+    """S=15 F2 at batch 1 in float32: 8 tiles of 45 k tiles.  Unsplit, one
+    wave of 8 blocks, each alone on its SM; at s = 8, 64 blocks in one
+    wave, each a slice of 6 k tiles and the reduction's cost; at batch 16
+    (116 tiles) s = 2 puts 232 blocks on 132 SMs: paired."""
+    f32 = torch.float32
+    alone, cost = ds.ALONE[f32], ds.SPLIT_COST[f32]
+    assert ds.split_time(8, 45, 1, 264, 132, f32) == pytest.approx(45 * alone)
+    assert ds.split_time(8, 45, 8, 30, 132, f32) == pytest.approx(
+        (6 + cost) * alone)
+    assert ds.split_time(116, 45, 2, 132, 132, f32) == pytest.approx(23 + cost)
+    # 1628 tiles at s = 1: six full waves of 264 and a last of 44 blocks
+    assert ds.split_time(1628, 171, 1, 264, 132, f32) == pytest.approx(
+        6 * 171 + 171 * alone)
+
+
+def test_k_splits_prefers_the_smaller_on_a_near_tie():
+    """Where two splits model within SPLIT_TIE of each other, the smaller
+    is taken; a product with fewer than 2 * MIN_SLICE_K k tiles stays
+    whole."""
+    f32 = torch.float32
+    times = {s: ds.split_time(8, 45, s, _clusters(s), H100_SMS, f32)
+             for s in range(1, 9)}
+    got = ds.k_splits(8, 45, _clusters, H100_SMS, f32)
+    best = min(times.values())
+    assert times[got] <= best * (1 + ds.SPLIT_TIE)
+    assert all(t > best * (1 + ds.SPLIT_TIE) for s, t in times.items()
+               if s < got)
+    assert ds.k_splits(12, 2 * ds.MIN_SLICE_K - 1, _clusters, H100_SMS,
+                       f32) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_wrappers_count_no_split(dtype):
+    """On CPU tensors F1 and F2 run their plain stages: no launch, and no
+    ``kernel.fwd_*.split`` counter appears."""
+    x, w1, scale, shift, w2 = _port(*_inputs(1, 15, 96, seed=4))
+    x = x.to(dtype)
+    before = _launches(ds.SPLIT_KERNELS)
+    r = ds.fwd_expand(x, w1, scale, shift)
+    ds.fwd_taps(r, w2)
+    assert not any(k.endswith(".split")
+                   for k in trace.snapshot()["counters"])
+    assert _launches(ds.SPLIT_KERNELS) == before
