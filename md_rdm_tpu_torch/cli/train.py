@@ -15,10 +15,11 @@ processes over gloo, the role of the JAX CLI's --platform cpu
 prints and writes the run directory; --precision 16 -> bfloat16 compute;
 --detect_anomaly -> ``debug_nans`` (autograd anomaly detection);
 --profile writes rank 0's ``torch.profiler`` trace under
-``<run>/profile``; --fused_dense routes the encoder's dense layers through
-the sandwich kernels (``kernels/dense_sandwich.py``: auto / on the
-H100-measured tables, on_all every layer forward, on_all_bwd and
-interpret forward and backward, off none); --flat_block runs a routed
+``<run>/profile``; --fused_dense routes the dense layers through the
+sandwich kernels (``kernels/dense_sandwich.py``: auto / on the
+H100-measured tables, the decoders' 8x8 layers in float32 eval too,
+on_all every encoder layer forward, on_all_bwd and interpret forward and
+backward, off none); --flat_block runs a routed
 encoder block as one in-place buffer (auto / on the H100-measured tables,
 on_all every block whose layers all route); --remat / --no_remat
 rematerialize the encoder's dense layers in the backward (the default:

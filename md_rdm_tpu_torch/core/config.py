@@ -6,10 +6,11 @@ that the ``config.json`` a training run writes loads in both packages
 (:meth:`Config.from_dict`, :meth:`ModelConfig.from_dict`).  The port keeps
 its own copy because it must not import the JAX package.
 
-``fused_dense`` routes the encoder's dense layers through the
-hand-written sandwich kernels (``kernels/dense_sandwich.py``: "auto" and
-"on" the tables measured on the H100, "on_all" every layer forward,
-"on_all_bwd" and "interpret" forward and backward, "off" none;
+``fused_dense`` routes the dense layers through the hand-written
+sandwich kernels (``kernels/dense_sandwich.py``: "auto" and "on" the
+tables measured on the H100, which take the decoders' 8x8 layers in
+float32 eval too, "on_all" every encoder layer forward, "on_all_bwd" and
+"interpret" forward and backward, "off" none;
 ``models/densenet.py::resolve_fused``).  ``growth_matmul`` it reads as the
 JAX package does off the TPU ("auto" off, "on" the empty measured tables,
 "on_all" every encoder layer the sandwich kernels do not take:

@@ -57,7 +57,7 @@ GK = 9 * GROWTH     # the nine 3x3 taps' columns: tap * 48 + channel
 CHUNK = 48
 
 # ---- routing ----------------------------------------------------------------
-# Which dense layers the encoder runs through the kernels, by spatial size,
+# Which dense layers the model runs through the kernels, by spatial size,
 # mode of the step and ``ModelConfig.fused_dense`` mode (resolved by
 # ``models/densenet.py::resolve_fused``), with the JAX package's semantics
 # (``md_rdm_tpu/kernels/dense_sandwich.py::routes`` / ``bwd_routes``); the
@@ -70,6 +70,13 @@ def supported_spatial(s: int) -> bool:
     """Whether the encoder's dense layers at spatial size ``s`` can run
     through the kernels (the three dense blocks' sizes)."""
     return s in SUPPORTED
+
+
+# Sizes the measured "on" tables may hold: the encoder's, and S=8, the
+# dense block every decoder opens with (24 layers, C_in 1,056-2,160, bn_size
+# 8).  The forcing modes ("on_all", "on_all_bwd", "interpret") keep to
+# SUPPORTED, as the JAX package routes.
+KERNEL_SIZES = SUPPORTED | {8}
 
 
 # Sizes whose whole dense block runs faster through the kernels than
@@ -87,8 +94,14 @@ def supported_spatial(s: int) -> bool:
 # f32: S=29 52.49-52.94 (K1-K4) against 63.08-63.45; S=15 72.40-83.89
 # against 62.66-63.27 (the batch statistics cost 25-35 ms there); bf16
 # S=29 24.33-45.14 against 17.55-21.19, S=15 60.53-88.63 against
-# 32.00-51.81.
-PROFITABLE_EVAL = {torch.float32: frozenset({57, 29, 15}),
+# 32.00-51.81.  S=8, the decoders' block (24 layers, C_in 1,056, bn_size
+# 8), eval only: the whole block as device time of captured launches
+# (chip_smoke.py routing, run "s1"), f32 routed 1.57 / 3.16 ms against
+# 4.15 / 7.13 unrouted at batch 1 / 16 (F1 and F2 split K as
+# card_splits picks); bf16 1.45 / 1.97 against 1.14 / 1.52, so not
+# routed.  It is not in the train tables: S=8 stays off the kernels in
+# train.
+PROFITABLE_EVAL = {torch.float32: frozenset({57, 29, 15, 8}),
                    torch.bfloat16: frozenset({57, 29})}
 PROFITABLE_TRAIN = {torch.float32: frozenset({57, 29}),
                     torch.bfloat16: frozenset({57})}

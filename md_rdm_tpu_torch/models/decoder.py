@@ -141,15 +141,18 @@ def relative_tail(maps: Dict[int, torch.Tensor],
 class Decoder(nn.Module):
     """One decoder branch on NCHW encoder features (channels-last memory,
     compute dtype).  DORN ids return (decode, probs); relative ids the
-    1-channel float32 map, which :func:`relative_tail` fills."""
+    1-channel float32 map, which :func:`relative_tail` fills.
+    ``fused_mode`` (the resolved ``ModelConfig.fused_dense``) goes to the
+    dense block's layers, which route at S=8 where the tables of
+    ``kernels/dense_sandwich.py`` say so."""
 
     def __init__(self, decoder_id: int, ordinal_channels: int = 180,
-                 soft_ordinal_decode: bool = False):
+                 soft_ordinal_decode: bool = False, fused_mode: str = "on"):
         super().__init__()
         did = decoder_id
         self.decoder_id = did
         self.soft = soft_ordinal_decode
-        self.dense_layer = DenseBlock(24, 1056, 8)
+        self.dense_layer = DenseBlock(24, 1056, 8, fused_mode=fused_mode)
         self.wsm_block = WSMCascade((did - 1) % 5)
         if did > 5:
             self.conv1 = nn.Conv2d(wsm_output_planes(did), 1, 1)

@@ -78,7 +78,8 @@ class DepthEstimationNet(nn.Module):
                                resolve_flat(config.flat_block, fused))
         for did in config.decoder_ids:
             self.add_module(f"d_{did}", Decoder(
-                did, config.ordinal_channels, config.soft_ordinal_decode))
+                did, config.ordinal_channels, config.soft_ordinal_decode,
+                fused))
         self.weight_layer = Weights(config.vector_sizes, config.fusion_init)
 
     def forward(self, images: torch.Tensor,

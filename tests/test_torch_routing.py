@@ -6,10 +6,12 @@ port's tables are its own, from H100 measurement); routed S=29 and S=15
 dense layers and blocks at their true widths against the JAX layers with
 ``fused="interpret"`` (the TPU kernels interpreted: the function the
 port's kernels compute) on the same weights, in train mode (outputs,
-updated running statistics, gradients) and eval mode; the forward-routed,
-backward-unrouted split ("on_all"); "off"; norm2's batch statistics at
-the routed sizes; and ``cli.train --fused_dense`` reaching the model.  On CPU
-tensors every sandwich wrapper runs its plain version.
+updated running statistics, gradients) and eval mode; the decoders' S=8
+block, routed in eval only (against the JAX decoder's unrouted block);
+the forward-routed, backward-unrouted split ("on_all"); "off"; norm2's
+batch statistics at the routed sizes; and ``cli.train --fused_dense``
+reaching the model.  On CPU tensors every sandwich wrapper runs its
+plain version.
 
 Bars.  float32: outputs 1e-4 relL2, running statistics 1e-5, gradients
 1e-3 (a ReLU input within rounding of 0 takes the other branch under
@@ -63,13 +65,19 @@ def test_routes_equal_jax(mode):
 def test_on_follows_the_port_tables():
     """"on" (and "auto", which resolves to it on every device) routes
     exactly the sizes in the port's tables, per mode of the step and
-    dtype; the tables hold supported sizes only, and S=57 in every one."""
+    dtype; the eval tables hold sizes the kernels take (the encoder's and
+    the decoders' S=8), the train, backward and flat tables the encoder's
+    (the JAX package's) only, and S=57 is in every one."""
     assert tdn.resolve_fused("auto") == "on"
     assert tdn.resolve_fused("interpret") == "on_all_bwd"
+    assert ds.KERNEL_SIZES == ds.SUPPORTED | {8}
     for dt in (torch.float32, torch.bfloat16):
-        for table in (ds.PROFITABLE_EVAL, ds.PROFITABLE_TRAIN,
-                      ds.BWD_PROFITABLE):
+        assert 57 in ds.PROFITABLE_EVAL[dt]
+        assert ds.PROFITABLE_EVAL[dt] <= ds.KERNEL_SIZES
+        for table in (ds.PROFITABLE_TRAIN, ds.BWD_PROFITABLE):
             assert 57 in table[dt] and table[dt] <= ds.SUPPORTED
+        for table in (ds.FLAT_PROFITABLE_EVAL, ds.FLAT_PROFITABLE_TRAIN):
+            assert table[dt] <= ds.SUPPORTED
         for s in (57, 29, 15, 8):
             assert ds.routes(s, False, "on", dt) == (
                 s in ds.PROFITABLE_EVAL[dt])
@@ -83,10 +91,13 @@ def test_on_follows_the_port_tables():
                                         ("on_all", "on_all"),
                                         ("interpret", "on_all_bwd")])
 def test_model_config_reaches_every_dense_layer(fused, want):
-    model = DepthEstimationNet(ModelConfig(fused_dense=fused))
-    modes = {m.fused_mode for m in model.encoder.modules()
-             if isinstance(m, tdn.DenseLayer)}
-    assert modes == {want}
+    """The resolved mode reaches every dense layer of the model: the
+    encoder's and each decoder's, a relative one's too."""
+    model = DepthEstimationNet(ModelConfig(fused_dense=fused,
+                                           decoder_ids=(1, 6)))
+    layers = [m for m in model.modules() if isinstance(m, tdn.DenseLayer)]
+    assert len(layers) == 54 + 2 * 24
+    assert {m.fused_mode for m in layers} == {want}
 
 
 def test_cli_fused_dense_reaches_the_model():
@@ -98,7 +109,7 @@ def test_cli_fused_dense_reaches_the_model():
     config = cli_train.build_config(args)
     assert config.model.fused_dense == "off"
     model = DepthTrainer(config, device="cpu").init(seed=0).model
-    modes = {m.fused_mode for m in model.encoder.modules()
+    modes = {m.fused_mode for m in model.modules()
              if isinstance(m, tdn.DenseLayer)}
     assert modes == {"off"}
 
@@ -180,6 +191,7 @@ def _check(r, dtype, per_tensor_grads=True):
 
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                                  ids=["f32", "bf16"])
+DT_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}.get
 
 
 @DTYPES
@@ -238,6 +250,74 @@ def test_routed_layer_eval_matches_jax_interpret(s, c_in, dtype):
         np.testing.assert_array_equal(got["on"], got["on_all"])
     else:
         np.testing.assert_array_equal(got["on"], got["off"])
+
+
+# ---- the decoders' S=8 dense block ------------------------------------------
+
+def _sandwich_calls(monkeypatch):
+    """Record each ``dense_sandwich_packed`` call a dense layer makes."""
+    calls = []
+    orig = tdn.dense_sandwich_packed
+    monkeypatch.setattr(tdn, "dense_sandwich_packed", lambda *a: (
+        calls.append(a[0].shape), orig(*a))[1])
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [
+    dt for dt in (torch.float32, torch.bfloat16)
+    if 8 in ds.PROFITABLE_EVAL[dt]], ids=DT_IDS)
+@pytest.mark.parametrize("c_in,n,b", [(1056, 3, 2), (2160, 1, 1)])
+def test_decoder_block_routed_eval_matches_jax(monkeypatch, c_in, n, b,
+                                               dtype):
+    """The decoders' dense block (bn_size 8 at S=8; its first three
+    layers, and its last) in eval under "on": every layer through the
+    sandwich's plain stages, against the JAX decoder's unrouted
+    ``DenseBlock(n, 8, 48)`` on the same randomized weights, and against
+    the port's unrouted block ("off")."""
+    x = _x((b, 8, 8, c_in), c_in + n, dtype)
+    jb = jdn.DenseBlock(n, 8, 48, dtype=JAX_DT[dtype])
+    v = randomize_norms(jb.init(jax.random.PRNGKey(n), jnp.asarray(x),
+                                False), c_in)
+    want = np.asarray(jb.apply(v, jnp.asarray(x).astype(JAX_DT[dtype]),
+                               False), np.float32)
+    sd = from_jax_variables(v["params"], v["batch_stats"])
+    calls = _sandwich_calls(monkeypatch)
+    got = {}
+    for mode in ("on", "off"):
+        block = tdn.DenseBlock(n, c_in, 8, fused_mode=mode).eval()
+        block.load_state_dict(sd)
+        with torch.no_grad():
+            got[mode] = torch_to_nhwc(block(
+                torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2)))
+    assert calls == [(b, 8, 8, c_in + 48 * i) for i in range(n)]
+    assert got["on"].shape == (b, 8, 8, c_in + 48 * n)
+    tol = TOL[dtype]["out"]
+    assert rel_l2(got["on"], want) < tol
+    assert rel_l2(got["on"], got["off"]) < tol
+
+
+@DTYPES
+def test_decoder_layer_unrouted_in_train(monkeypatch, dtype):
+    """Under "on" an S=8 dense layer runs the separate ops in train mode
+    (no sandwich call, no folded batch statistics), forward and backward,
+    and goes through the sandwich in eval exactly where the eval table
+    holds S=8 for the dtype."""
+    calls = _sandwich_calls(monkeypatch)
+    stats = []
+    orig = tdn.conv_bn_stats
+    monkeypatch.setattr(tdn, "conv_bn_stats", lambda *a: (
+        stats.append(1), orig(*a))[1])
+    layer = tdn.DenseLayer(1056, 8, fused_mode="on")
+    x = torch.randn(2, 1056, 8, 8).to(dtype).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    layer.train()(x).float().sum().backward()
+    assert calls == [] and stats == []
+    assert x.grad is not None
+    with torch.no_grad():
+        layer.eval()(x)
+    assert len(calls) == int(ds.routes(8, False, "on", dtype))
+    assert not ds.routes(8, True, "on", dtype)
+    assert not ds.bwd_routes(8, "on", dtype)
 
 
 # ---- the forward-routed, backward-unrouted split ----------------------------
