@@ -164,11 +164,11 @@ Phases, one JSON line each:
                   bit; the atomically summed outputs within 1e-5), and
                   composed against the plain versions, with their times;
                   each encoder block (S=57 / 29 / 15, batch 16, per dtype)
-                  flat (DenseBlockFlat) against unflat under on_all_bwd:
+                  flat (_FlatBlock) against unflat under on_all_bwd:
                   one train call held (outputs, gradients, running
                   statistics), then eval and train timed with enqueue and
                   device operations and busy time per call, and the flat
-                  tables of kernels/dense_sandwich.py checked against the
+                  sizes of models/routing.py checked against the
                   sizes flat won or lost by over FLAT_TIE in every turn;
                   then (remat) the live train
                   step with remat off and on per dtype: launches (equal),
@@ -222,10 +222,9 @@ DepthTrainer's steps (phases 6, 12, 17's train steps, 18's remat steps)
 stay eager, as the JAX package's module functions are not jitted;
 phase 16 compares eager steps (the group's collectives are not
 captured).
-A "routed layer" is one that kernels/dense_sandwich.py::routes takes for
-the phase's fused_dense mode, dtype and mode of the step (K1-K4 where
-bwd_routes holds too), or that lies in a block that runs flat
-(flat_routes under the phase's flat_block mode); every phase derives its
+A "routed layer" is one that models/routing.py's Routing.launches takes
+for the phase's fused_dense and flat_block modes, dtype and mode of the
+step (F1-F3; with its backward, K1-K4); every phase derives its
 expected launches from that (routed_layers) and checks them exactly.
 Then one {"kernels": [...]} line, the card's name and power limit on a line
 of their own, and the closing {"ok": true, ...} line.  Every failed check
@@ -350,26 +349,13 @@ def routed_layers(train: bool, dt=torch.float32, mode: str = "auto",
     live model: 1) that launch each forward kernel (with ``bwd``: each
     backward kernel) under ``ModelConfig.fused_dense`` ``mode`` and
     ``ModelConfig.flat_block`` ``flat``, in eval or train: the launches
-    each phase expects, derived from the port's routing.  A block that
-    runs flat (``flat_routes``, every layer routed) launches each kernel
-    once per layer both ways; the decoders' blocks never run flat."""
-    from md_rdm_tpu_torch.kernels.dense_sandwich import (bwd_routes,
-                                                         flat_routes, routes)
-    from md_rdm_tpu_torch.models.densenet import resolve_flat, resolve_fused
-    m = resolve_fused(mode)
-    f = resolve_flat(flat, m)
-    total = 0
-    for s, n, _ in ENCODER_BLOCKS:
-        routed = routes(s, train, m, dt)
-        both = routed and bwd_routes(s, m, dt)
-        runs_flat = flat_routes(s, train, f, dt) and (both or routed
-                                                       and not train)
-        if runs_flat or (routed and (not bwd or both)):
-            total += n
-    s, n, _ = DECODER_BLOCK
-    if routes(s, train, m, dt) and (not bwd or bwd_routes(s, m, dt)):
-        total += n * decoders
-    return total
+    each phase expects, derived from the port's routing
+    (``Routing.launches``)."""
+    from md_rdm_tpu_torch.models.routing import Routing
+    r = Routing(mode, flat)
+    blocks = [(s, n) for s, n, _ in ENCODER_BLOCKS]
+    blocks.append((DECODER_BLOCK[0], DECODER_BLOCK[1] * decoders))
+    return sum(n for s, n in blocks if r.launches(s, train, dt, bwd))
 
 
 # the script's start: each phase's line carries its time since (t_s)
@@ -1553,6 +1539,7 @@ def dense_block_times(s: int, n: int, c0: int, dt) -> dict:
     from md_rdm_tpu_torch.models import densenet as tdn
     from md_rdm_tpu_torch.models.rdm import (init_parameters,
                                              randomize_batchnorm)
+    from md_rdm_tpu_torch.models.routing import Routing
     base = tdn.DenseBlock(n, c0, s)
     init_parameters(base, SEED)
     randomize_batchnorm(base, SEED + 1)
@@ -1562,7 +1549,7 @@ def dense_block_times(s: int, n: int, c0: int, dt) -> dict:
     hg = h.detach().requires_grad_()
     blocks = {}
     for mode in ("off", "on_all", "on_all_bwd"):
-        blk = tdn.DenseBlock(n, c0, s, fused_mode=mode)
+        blk = tdn.DenseBlock(n, c0, s, routing=Routing(mode, "off"))
         blk.load_state_dict(base.state_dict())
         blocks[mode] = blk.cuda()
 
@@ -1592,16 +1579,18 @@ def dense_block_times(s: int, n: int, c0: int, dt) -> dict:
 
 @contextlib.contextmanager
 def eval_routed(s: int):
-    """The port's eval tables with size ``s`` in them for both dtypes while
+    """The port's eval sizes with size ``s`` in them for both dtypes while
     the block runs: what ``fused_dense`` "on" does where ``s`` is in
-    ``PROFITABLE_EVAL``, measurable before it is."""
-    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
-    kept = ds.PROFITABLE_EVAL
-    ds.PROFITABLE_EVAL = {dt: table | {s} for dt, table in kept.items()}
+    ``models/routing.py``'s ``MEASURED`` eval layers, measurable before it
+    is."""
+    from md_rdm_tpu_torch.models import routing as rt
+    kept = rt.MEASURED
+    rt.MEASURED = {(train, dt): sizes if train else sizes._replace(
+        layers=sizes.layers | {s}) for (train, dt), sizes in kept.items()}
     try:
         yield
     finally:
-        ds.PROFITABLE_EVAL = kept
+        rt.MEASURED = kept
 
 
 def decoder_block_times(dt) -> dict:
@@ -1619,10 +1608,11 @@ def decoder_block_times(dt) -> dict:
     from md_rdm_tpu_torch.models import densenet as tdn
     from md_rdm_tpu_torch.models.rdm import (init_parameters,
                                              randomize_batchnorm)
+    from md_rdm_tpu_torch.models.routing import Routing
     s, n, c0 = DECODER_BLOCK
     blocks = {}
     for mode in ("on", "off"):
-        blk = tdn.DenseBlock(n, c0, s, fused_mode=mode)
+        blk = tdn.DenseBlock(n, c0, s, routing=Routing(mode, "off"))
         init_parameters(blk, SEED)
         randomize_batchnorm(blk, SEED + 1)
         blocks[mode] = blk.cuda().eval()
@@ -1805,7 +1795,7 @@ def phase_routing(smi) -> dict:
     (:func:`routing_model`).  Returns the launches of its main-path runs
     and its rows for the kernels line."""
     from md_rdm_tpu_torch.core.device import no_tf32
-    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    from md_rdm_tpu_torch.models import routing as rt
     sandwiches, blocks = [], []
     t0 = time.perf_counter()
     with no_tf32():
@@ -1816,10 +1806,11 @@ def phase_routing(smi) -> dict:
                 blocks.append(dense_block_times(s, n, c0, dt))
                 torch.cuda.empty_cache()
         decoder = [decoder_block_times(dt) for dt in DTYPES]
+    # the train sizes are also the backward's
     tables = {DT_NAME[dt]: {
-        "eval": sorted(ds.PROFITABLE_EVAL[dt]),
-        "train": sorted(ds.PROFITABLE_TRAIN[dt]),
-        "bwd": sorted(ds.BWD_PROFITABLE[dt])} for dt in DTYPES}
+        "eval": sorted(rt.MEASURED[False, dt].layers),
+        "train": sorted(rt.MEASURED[True, dt].layers),
+        "bwd": sorted(rt.MEASURED[True, dt].layers)} for dt in DTYPES}
     measured = measured_tables(blocks, decoder)
     # the S=57 block is measured by times_kernel / times_kernel_bwd
     agree = all(sorted(set(tables[d][k]) - {57}) == measured[d][k]
@@ -2015,8 +2006,8 @@ def strided_times() -> dict:
 
 def flat_block_times(s: int, n: int, c0: int, dt) -> dict:
     """One seeded dense block (randomized BatchNorm statistics) at batch
-    16 under fused_dense on_all_bwd, flat (DenseBlockFlat, flat_block
-    on_all) against unflat (DenseBlock): one train call (forward and
+    16 under fused_dense on_all_bwd, flat (_FlatBlock, flat_block
+    on_all) against unflat (flat_block off): one train call (forward and
     backward with a seeded cotangent) from the same state, then one eval
     forward, held to each other (outputs TOL, gradients and running
     statistics BWD_TOL: in bfloat16 every gradient as one vector); then
@@ -2028,6 +2019,7 @@ def flat_block_times(s: int, n: int, c0: int, dt) -> dict:
     from md_rdm_tpu_torch.models import densenet as tdn
     from md_rdm_tpu_torch.models.rdm import (init_parameters,
                                              randomize_batchnorm)
+    from md_rdm_tpu_torch.models.routing import Routing
     base = tdn.DenseBlock(n, c0, s)
     init_parameters(base, SEED)
     randomize_batchnorm(base, SEED + 1)
@@ -2037,9 +2029,9 @@ def flat_block_times(s: int, n: int, c0: int, dt) -> dict:
         dt).contiguous(memory_format=cl)
     cot = torch.randn(BATCH, c0 + 48 * n, s, s, generator=g,
                       device="cuda").to(dt).contiguous(memory_format=cl)
-    blocks = {"unflat": tdn.DenseBlock(n, c0, s, fused_mode="on_all_bwd"),
-              "flat": tdn.DenseBlockFlat(n, c0, s, fused_mode="on_all_bwd",
-                                         flat_mode="on_all")}
+    blocks = {form: tdn.DenseBlock(n, c0, s,
+                                   routing=Routing("on_all_bwd", flat))
+              for form, flat in (("unflat", "off"), ("flat", "on_all"))}
     got = {}
     with no_tf32():
         for form, blk in blocks.items():
@@ -2122,16 +2114,16 @@ def flat_tables_agree(blocks) -> tuple:
     """The tables the block times call for (a size enters where flat won
     every turn), and whether the port's tables agree: each size that won
     is in its table, and none that lost; a tie may be either."""
-    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    from md_rdm_tpu_torch.models import routing as rt
     measured, agree = {}, True
     for dt in DTYPES:
-        for mode, table in (("eval", ds.FLAT_PROFITABLE_EVAL),
-                            ("train", ds.FLAT_PROFITABLE_TRAIN)):
+        for mode, train in (("eval", False), ("train", True)):
+            sizes = rt.MEASURED[train, dt].flat
             rows = [b for b in blocks if b["dtype"] == DT_NAME[dt]]
             measured.setdefault(DT_NAME[dt], {})[mode] = sorted(
                 b["s"] for b in rows if b[f"{mode}_wins"])
             agree &= all(not (b[f"{mode}_wins"] or b[f"{mode}_loses"])
-                         or (b["s"] in table[dt]) == b[f"{mode}_wins"]
+                         or (b["s"] in sizes) == b[f"{mode}_wins"]
                          for b in rows)
     return measured, agree
 
@@ -2324,7 +2316,7 @@ def phase_flat(smi) -> dict:
     tables those times call for, remat's step and memory, and the flat
     model's launches.  Returns its rows for the kernels line."""
     from md_rdm_tpu_torch.core.device import no_tf32
-    from md_rdm_tpu_torch.kernels import dense_sandwich as ds
+    from md_rdm_tpu_torch.models import routing as rt
     t0 = time.perf_counter()
     with no_tf32():
         checks = strided_checks()
@@ -2335,8 +2327,8 @@ def phase_flat(smi) -> dict:
             blocks.append(flat_block_times(s, n, c0, dt))
             torch.cuda.empty_cache()
     measured, agree = flat_tables_agree(blocks)
-    tables = {DT_NAME[dt]: {"eval": sorted(ds.FLAT_PROFITABLE_EVAL[dt]),
-                            "train": sorted(ds.FLAT_PROFITABLE_TRAIN[dt])}
+    tables = {DT_NAME[dt]: {"eval": sorted(rt.MEASURED[False, dt].flat),
+                            "train": sorted(rt.MEASURED[True, dt].flat)}
               for dt in DTYPES}
     out = {"phase": "flat", "card": smi, "strided_checks": checks,
            "strided_times": times, "blocks": blocks, "tables": tables,

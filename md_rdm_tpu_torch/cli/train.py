@@ -16,16 +16,11 @@ prints and writes the run directory; --precision 16 -> bfloat16 compute;
 --detect_anomaly -> ``debug_nans`` (autograd anomaly detection);
 --profile writes rank 0's ``torch.profiler`` trace under
 ``<run>/profile``; --fused_dense routes the dense layers through the
-sandwich kernels (``kernels/dense_sandwich.py``: auto / on the
-H100-measured tables, the decoders' 8x8 layers in float32 eval too,
-on_all every encoder layer forward, on_all_bwd and interpret forward and
-backward, off none); --flat_block runs a routed
-encoder block as one in-place buffer (auto / on the H100-measured tables,
-on_all every block whose layers all route); --remat / --no_remat
-rematerialize the encoder's dense layers in the backward (the default:
-on); --growth_matmul on_all runs the
-encoder's S=29/15 growth convs as one matmul each
-(``kernels/growth_conv.py``); --augment device ships raw uint8 batches
+sandwich kernels, --flat_block runs a routed dense block as one in-place
+buffer and --growth_matmul runs the encoder's growth convs as one matmul
+each (``models/routing.py`` says what each value does); --remat /
+--no_remat rematerialize the encoder's dense layers in the backward (the
+default: on); --augment device ships raw uint8 batches
 (``data/raw.py``) that each train step augments on the device
 (``data/augment.py``); --find_learning_rate runs an LR range sweep
 (exponential ramp, pick the steepest-descent point - the tuner.lr_find
@@ -147,7 +142,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flat_block", default="auto",
                    choices=("auto", "on", "on_all", "off", "interpret"),
                    help="Encoder dense blocks as one in-place buffer "
-                        "(models/densenet.py DenseBlockFlat) where every "
+                        "(models/routing.py) where every "
                         "layer routes through the kernels: auto = on "
                         "where --fused_dense routes, the H100-measured "
                         "tables; on_all: every such block; interpret: "

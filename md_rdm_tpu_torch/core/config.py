@@ -6,21 +6,14 @@ that the ``config.json`` a training run writes loads in both packages
 (:meth:`Config.from_dict`, :meth:`ModelConfig.from_dict`).  The port keeps
 its own copy because it must not import the JAX package.
 
-``fused_dense`` routes the dense layers through the hand-written
-sandwich kernels (``kernels/dense_sandwich.py``: "auto" and "on" the
-tables measured on the H100, which take the decoders' 8x8 layers in
-float32 eval too, "on_all" every encoder layer forward, "on_all_bwd" and
-"interpret" forward and backward, "off" none;
-``models/densenet.py::resolve_fused``).  ``growth_matmul`` it reads as the
-JAX package does off the TPU ("auto" off, "on" the empty measured tables,
-"on_all" every encoder layer the sandwich kernels do not take:
-``kernels/growth_conv.py``).  The relative decoders of size >= 16 run the
-fused comparison + quantization kernel (``kernels/lloyd.py``) on CUDA.
-``flat_block`` runs a routed encoder dense block as one in-place buffer
-(``models/densenet.py::DenseBlockFlat``, resolved by ``resolve_flat``:
-"auto" means "on" wherever ``fused_dense`` routes layers, "on" the
-H100-measured tables of ``kernels/dense_sandwich.py``, "on_all" every
-block whose layers all route, "interpret" S=57 alone, "off" none).
+``fused_dense`` ("auto", "on", "on_all", "on_all_bwd", "off",
+"interpret") routes the dense layers through the hand-written sandwich
+kernels, ``flat_block`` ("auto", "on", "on_all", "off", "interpret")
+runs a routed dense block as one in-place buffer, and ``growth_matmul``
+("auto", "on", "on_all", "off") runs the 3x3 growth convs as one matmul:
+``models/routing.py`` says what each value does.  The relative decoders
+of size >= 16 run the fused comparison + quantization kernel
+(``kernels/lloyd.py``) on CUDA.
 ``remat`` (default True, as in the JAX package) runs each layer of the
 three encoder blocks under ``torch.utils.checkpoint``: it keeps only its
 input and runs again in the backward (a routed layer without its

@@ -14,7 +14,7 @@
 // (pallas_call in _pallas_sandwich) and ::_kernel_flat (the same function
 // with block-native I/O); computes dense_sandwich_nhwc.py::_kernel too.
 // The block's own layout here is one NHWC buffer [B, S, S, C_final] per
-// dense block (models/densenet.py::DenseBlockFlat): F3 writes a layer's 48
+// dense block (models/densenet.py::_FlatBlock): F3 writes a layer's 48
 // channels into their slot of it with row stride ldy = C_final, and K1 and
 // K4 read the slot of the block's cotangent with row stride ldg, as
 // _kernel_flat and _bwd_kernel_flat read and write the [B, C, ZT] stack.

@@ -27,13 +27,12 @@ forward kernels, then :func:`dense_sandwich_bwd`, the four backward kernels
 of the same source (port of ``_bwd_kernel`` and ``_bwd_kernel_flat``),
 which recompute z from the saved input instead of keeping it.
 :func:`conv_bn_stats` gives norm2's train-mode batch statistics without
-materializing z.  The routing functions (:func:`routes`,
-:func:`bwd_routes`) say which dense layers take the kernels, and
-:func:`flat_routes` which dense blocks run as one in-place buffer (the
-port of ``_kernel_flat`` / ``_bwd_kernel_flat``'s block-native I/O: F3
-writes y by row stride into the block's buffer, K1 and K4 read the
-cotangent by row stride from the block's cotangent).  Each kernel's
-wrapper counts its launches (``kernel.<name>.launches`` in
+materializing z.  Which dense layers take the kernels, and which dense
+blocks run as one in-place buffer, ``models/routing.py`` decides; in
+such a block F3 writes y by row stride into the block's buffer, and K1
+and K4 read the cotangent by row stride from the block's cotangent (the
+port of ``_kernel_flat`` / ``_bwd_kernel_flat``'s block-native I/O).
+Each kernel's wrapper counts its launches (``kernel.<name>.launches`` in
 ``core/trace.py``; F1 and F2 also ``kernel.<name>.split``) and has its
 plain stage beside it.
 """
@@ -55,137 +54,6 @@ GROWTH = 48
 GK = 9 * GROWTH     # the nine 3x3 taps' columns: tap * 48 + channel
 # C_in and C_mid are multiples of 48 channels (the bf16 k tile).
 CHUNK = 48
-
-# ---- routing ----------------------------------------------------------------
-# Which dense layers the model runs through the kernels, by spatial size,
-# mode of the step and ``ModelConfig.fused_dense`` mode (resolved by
-# ``models/densenet.py::resolve_fused``), with the JAX package's semantics
-# (``md_rdm_tpu/kernels/dense_sandwich.py::routes`` / ``bwd_routes``); the
-# tables are the port's own, from H100 measurement.
-
-SUPPORTED = frozenset({57, 29, 15})
-
-
-def supported_spatial(s: int) -> bool:
-    """Whether the encoder's dense layers at spatial size ``s`` can run
-    through the kernels (the three dense blocks' sizes)."""
-    return s in SUPPORTED
-
-
-# Sizes the measured "on" tables may hold: the encoder's, and S=8, the
-# dense block every decoder opens with (24 layers, C_in 1,056-2,160, bn_size
-# 8).  The forcing modes ("on_all", "on_all_bwd", "interpret") keep to
-# SUPPORTED, as the JAX package routes.
-KERNEL_SIZES = SUPPORTED | {8}
-
-
-# Sizes whose whole dense block runs faster through the kernels than
-# through the cuDNN sequence, per mode of the step and compute dtype (f32
-# and bf16 measure apart), at batch 16, NVIDIA H100 80GB HBM3, 700.00 W.
-# S=57: F1-F3 27.33 / 5.49 ms against cuDNN's 57.82 / 9.14 (f32 / bf16,
-# the six layers' sandwiches), K1-K4 71.10 / 13.74 against autograd's
-# 119.09 / 19.13 (chip_smoke.py times_kernel, times_kernel_bwd, run
-# "proof6").  S=29 / S=15, the whole block timed per mode (chip_smoke.py
-# routing, runs "route2", "full12", "proof12", "proof12b"): eval f32
-# 10.89-11.05 / 13.24-13.37 ms routed against 17.57-17.72 / 23.29-23.50
-# unrouted; bf16 S=29 3.36-3.96 against 5.79-5.84; bf16 S=15 8.44 / 9.14
-# / 10.10 / 6.50 against 8.34 / 13.03 / 10.09 / 6.97, a win in two runs
-# of four (the host sets these), so not routed.  Train forward + backward
-# f32: S=29 52.49-52.94 (K1-K4) against 63.08-63.45; S=15 72.40-83.89
-# against 62.66-63.27 (the batch statistics cost 25-35 ms there); bf16
-# S=29 24.33-45.14 against 17.55-21.19, S=15 60.53-88.63 against
-# 32.00-51.81.  S=8, the decoders' block (24 layers, C_in 1,056, bn_size
-# 8), eval only: the whole block as device time of captured launches
-# (chip_smoke.py routing, run "s1"), f32 routed 1.57 / 3.16 ms against
-# 4.15 / 7.13 unrouted at batch 1 / 16 (F1 and F2 split K as
-# card_splits picks); bf16 1.45 / 1.97 against 1.14 / 1.52, so not
-# routed.  It is not in the train tables: S=8 stays off the kernels in
-# train.
-PROFITABLE_EVAL = {torch.float32: frozenset({57, 29, 15, 8}),
-                   torch.bfloat16: frozenset({57, 29})}
-PROFITABLE_TRAIN = {torch.float32: frozenset({57, 29}),
-                    torch.bfloat16: frozenset({57})}
-# Sizes where the train step's backward runs K1-K4 too (elsewhere a
-# forward-routed layer's backward is autograd through the plain ops, which
-# lost to both at S=29 and S=15: f32 85.28-86.03 / 101.70-112.21 ms).
-BWD_PROFITABLE = {torch.float32: frozenset({57, 29}),
-                  torch.bfloat16: frozenset({57})}
-
-
-def profitable_spatial(s: int, train: bool = False,
-                       dtype: torch.dtype = torch.float32) -> bool:
-    """Whether the measured tables route size ``s`` in this mode of the
-    step and compute dtype."""
-    table = PROFITABLE_TRAIN if train else PROFITABLE_EVAL
-    return s in table[dtype]
-
-
-def routes(s: int, train: bool, mode: str,
-           dtype: torch.dtype = torch.float32) -> bool:
-    """Whether a dense layer of spatial size ``s`` runs the forward kernels
-    under the resolved ``mode``: "on" follows the measured tables;
-    "on_all", "on_all_bwd" and "interpret" take every supported size in
-    both modes of the step; "off" none."""
-    if mode in ("interpret", "on_all", "on_all_bwd"):
-        return supported_spatial(s)
-    return mode == "on" and profitable_spatial(s, train, dtype)
-
-
-def bwd_routes(s: int, mode: str, dtype: torch.dtype = torch.float32) -> bool:
-    """Whether a forward-routed layer's backward runs K1-K4 too:
-    "on_all_bwd" and "interpret" at every supported size, "on" where
-    :data:`BWD_PROFITABLE` holds the size."""
-    if mode in ("on_all_bwd", "interpret"):
-        return supported_spatial(s)
-    return mode == "on" and s in BWD_PROFITABLE[dtype]
-
-
-# Sizes whose whole dense block runs faster as one in-place buffer
-# (``models/densenet.py::DenseBlockFlat``: F3 writing each layer's output
-# into it, K1 / K4 reading the cotangent by row) than as the routed
-# DenseBlock (a cat per layer), per mode of the step and compute dtype,
-# under on_all_bwd at batch 16: a size enters where chip_smoke.py phase 18
-# (flat) measured it faster by over 10% in every turn, on an NVIDIA H100
-# 80GB HBM3 at 700.00 W (runs "flat2", "full13", "proof13"); the JAX
-# package's TPU tables do not carry over.  bf16 S=15 eval, host-bound:
-# flat / unflat 0.45-0.90 in all five turns of "proof13" (least times
-# 7.18 / 8.06 ms; one device operation fewer a layer), 0.59-1.29 in the
-# three turns of "flat2" and "full13".  Ties (within 10% in some turn):
-# f32 eval at every size (0.990-1.005), bf16 eval S=57 (0.97-0.98) and
-# S=29 (0.77-1.30).  Train loses at every size: f32 1.04 / 1.11 /
-# 1.20-1.38 at S=57 / 29 / 15, bf16 1.16 / 1.05-1.95 / 1.17-1.35 (the
-# flat backward recomputes norm1 and norm2's statistics).  A block runs
-# flat only where its layers route: bf16 S=15 eval does so under the
-# forcing fused_dense modes, not under "on".
-FLAT_PROFITABLE_EVAL = {torch.float32: frozenset(),
-                        torch.bfloat16: frozenset({15})}
-FLAT_PROFITABLE_TRAIN = {torch.float32: frozenset(),
-                         torch.bfloat16: frozenset()}
-
-
-def flat_routes(s: int, train: bool, mode: str,
-                dtype: torch.dtype = torch.float32) -> bool:
-    """Whether the encoder's dense block at spatial size ``s`` runs as one
-    in-place buffer under the resolved ``ModelConfig.flat_block`` ``mode``
-    (``models/densenet.py::resolve_flat``), with the JAX package's
-    semantics (``md_rdm_tpu/kernels/dense_sandwich.py::flat_routes``):
-    "on" follows the measured tables, "on_all" takes every supported size,
-    "interpret" S=57 alone, "off" none.  The block also needs every layer
-    routed through the kernels (``DenseBlockFlat.runs_flat``)."""
-    if mode == "on_all":
-        return supported_spatial(s)
-    if mode == "interpret":
-        return s == 57
-    table = FLAT_PROFITABLE_TRAIN if train else FLAT_PROFITABLE_EVAL
-    return mode == "on" and s in table[dtype]
-
-
-def flat_sizes(mode: str, train: bool = False,
-               dtype: torch.dtype = torch.float32) -> frozenset:
-    """The spatial sizes :func:`flat_routes` takes under ``mode``."""
-    return frozenset(s for s in sorted(SUPPORTED)
-                     if flat_routes(s, train, mode, dtype))
-
 
 def dense_sandwich_reference(x, w1, scale, shift, w2):
     """Plain PyTorch version, with the dtype semantics of the JAX
@@ -370,7 +238,7 @@ def dense_sandwich_packed(x, p: SandwichWeights, kernel_bwd: bool = True,
     [B, S, S, 48] view whose pixels lie a row stride apart
     (:func:`row_stride`: a 48-channel slot of a dense block's buffer),
     takes y in place; it is for callers that run their own backward
-    (``models/densenet.py::DenseBlockFlat``), so autograd must not need
+    (``models/densenet.py::_FlatBlock``), so autograd must not need
     this call's gradient."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, p.w1, p.scale, p.shift, p.w2)):
@@ -859,7 +727,7 @@ STRIDED_KERNELS = (fwd_tapsum, bwd_recompute, bwd_dw2)
 
 
 # The covariance form keeps no z (569 MB a layer at S=57).  At S=15 a z
-# materialized per layer was measured faster (ROADMAP queue 2 has the
+# materialized per layer was measured faster (ROADMAP item 4.3 has the
 # numbers), but no table routes S=15 in train, so only the forcing modes
 # would take it there; the covariance stays the one form until a table
 # does.

@@ -6,11 +6,8 @@ writes 48 channels; the formulation instead runs one [9G, C] x [C, ZL]
 product whose long dimension is the flattened, zero-padded frame: with the
 frame padded to width F = S + 2 and flattened row-major, tap (dy, dx) of
 output pixel q sits at flat position q + dy * F + dx, and the row wraps
-land on the zero border columns.  ``ModelConfig.growth_matmul`` routes the
-encoder's dense layers that the sandwich kernels do not take
-(``ModelConfig.fused_dense``): "on_all" routes all of them, "on" those in
-the measured tables below (empty, as in the JAX package), "auto" and "off"
-none.
+land on the zero border columns.  Which layers run it,
+``models/routing.py`` decides (``ModelConfig.growth_matmul``).
 
 The JAX package's ``growth_flop_inflation`` (a correction of XLA's
 ``cost_analysis``) has no counterpart here: nothing in the port counts
@@ -21,31 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# Spatial sizes where the formulation beats the convolution, per mode of
-# the step; empty, as measured in the JAX package on the TPU ("on_all"
-# still forces every size).
-_PROFITABLE_EVAL = frozenset()
-_PROFITABLE_TRAIN = frozenset()
-
 
 def _pad128(n: int) -> int:
     return -(-n // 128) * 128
-
-
-def resolve_growth(mode: str) -> str:
-    """``ModelConfig.growth_matmul`` as the JAX package resolves it off the
-    TPU: "auto" means "off"."""
-    return "off" if mode == "auto" else mode
-
-
-def growth_routes(s: int, train: bool, mode: str) -> bool:
-    """Whether a dense layer of spatial size ``s`` outside the sandwich
-    kernels runs :func:`growth_conv_matmul` under ``mode``."""
-    if mode == "on_all":
-        return True
-    if mode != "on":
-        return False
-    return s in (_PROFITABLE_TRAIN if train else _PROFITABLE_EVAL)
 
 
 def growth_conv_matmul(z: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ from md_rdm_tpu_torch.core.config import DECODER_SIZES
 from md_rdm_tpu_torch.kernels.lloyd import (fused_comparison_quantize_many,
                                             segment_pages)
 from md_rdm_tpu_torch.models.densenet import DenseBlock, conv
+from md_rdm_tpu_torch.models.routing import Routing
 from md_rdm_tpu_torch.models.wsm import WSMCascade, wsm_output_planes
 from md_rdm_tpu_torch.ops.als import als_factorize_grouped, quadratic_als
 from md_rdm_tpu_torch.ops.comparison import comparison_v1
@@ -142,17 +143,17 @@ class Decoder(nn.Module):
     """One decoder branch on NCHW encoder features (channels-last memory,
     compute dtype).  DORN ids return (decode, probs); relative ids the
     1-channel float32 map, which :func:`relative_tail` fills.
-    ``fused_mode`` (the resolved ``ModelConfig.fused_dense``) goes to the
-    dense block's layers, which route at S=8 where the tables of
-    ``kernels/dense_sandwich.py`` say so."""
+    ``routing`` (the model's) goes to the dense block, whose layers route
+    at S=8 where it says so."""
 
     def __init__(self, decoder_id: int, ordinal_channels: int = 180,
-                 soft_ordinal_decode: bool = False, fused_mode: str = "on"):
+                 soft_ordinal_decode: bool = False,
+                 routing: Routing = Routing()):
         super().__init__()
         did = decoder_id
         self.decoder_id = did
         self.soft = soft_ordinal_decode
-        self.dense_layer = DenseBlock(24, 1056, 8, fused_mode=fused_mode)
+        self.dense_layer = DenseBlock(24, 1056, 8, routing=routing)
         self.wsm_block = WSMCascade((did - 1) % 5)
         if did > 5:
             self.conv1 = nn.Conv2d(wsm_output_planes(did), 1, 1)

@@ -20,9 +20,10 @@ left alone: the momentum is fixed.
 torchvision's ``memory_efficient``) runs each encoder layer under
 ``torch.utils.checkpoint``: the layer keeps only its input and is run
 again in the backward, inside :func:`recompute`, which leaves the running
-statistics alone and keeps the forward's data-parallel group.
-``ModelConfig.flat_block`` runs a whole routed block as one in-place
-buffer (:class:`DenseBlockFlat`).
+statistics alone and keeps the forward's data-parallel group.  Which
+layers run the sandwich kernels, and which blocks run as one in-place
+buffer (:class:`_FlatBlock`), the model's one ``Routing``
+(``models/routing.py``, built from its ``ModelConfig``) decides.
 """
 from __future__ import annotations
 
@@ -36,44 +37,15 @@ from torch.utils.checkpoint import checkpoint
 
 from md_rdm_tpu_torch.core import mesh as mesh_lib
 from md_rdm_tpu_torch.kernels.dense_sandwich import (SandwichWeights,
-                                                     bwd_routes,
                                                      conv_bn_stats,
                                                      dense_sandwich_bwd,
                                                      dense_sandwich_packed,
-                                                     flat_routes,
-                                                     pack_weights, routes)
-from md_rdm_tpu_torch.kernels.growth_conv import (growth_conv_matmul,
-                                                  growth_routes)
+                                                     pack_weights)
+from md_rdm_tpu_torch.kernels.growth_conv import growth_conv_matmul
+from md_rdm_tpu_torch.models.routing import Routing
 
 GROWTH = 48
 CL = torch.channels_last
-
-
-def resolve_fused(mode: str) -> str:
-    """``ModelConfig.fused_dense`` as the dense layers read it: "auto"
-    means "on" (the measured tables of ``kernels/dense_sandwich.py``) on
-    every device, since the kernels' wrappers run their plain versions on
-    CPU tensors, so that the CPU port stands for the card; the JAX package
-    resolves "auto" to "off" off the TPU.  "interpret" (the JAX package's
-    interpreted kernels) means "on_all_bwd": every supported size forward
-    and backward, the plain versions on the CPU and the kernels on the
-    card.  Other modes pass through."""
-    if mode == "auto":
-        return "on"
-    return "on_all_bwd" if mode == "interpret" else mode
-
-
-def resolve_flat(mode: str, fused_resolved: str) -> str:
-    """``ModelConfig.flat_block`` as the encoder reads it: "auto" means
-    "on" (the measured tables of ``kernels/dense_sandwich.py``) whenever
-    the resolved ``fused_dense`` routes layers through the kernels ("on",
-    "on_all", "on_all_bwd"), on every device, as :func:`resolve_fused`
-    does; else "off".  Other modes pass through.  A block runs flat only
-    where its layers route too (:meth:`DenseBlockFlat.runs_flat`)."""
-    if mode == "auto":
-        return ("on" if fused_resolved in ("on", "on_all", "on_all_bwd")
-                else "off")
-    return mode
 
 
 _RECOMPUTING = contextvars.ContextVar("md_rdm_tpu_torch_recomputing",
@@ -179,24 +151,22 @@ def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
 class DenseLayer(nn.Module):
     """torchvision _DenseLayer: BN-ReLU-1x1 (bn_size*48) -BN-ReLU-3x3 (48).
 
-    Where ``routes`` takes the layer's spatial size under ``fused_mode``
-    (the resolved ``ModelConfig.fused_dense``, :func:`resolve_fused`), conv1
-    -> norm2 -> ReLU -> conv2 runs as one sandwich call with norm2 folded
-    into an affine (the JAX ``_FoldedNorm``): running statistics in eval,
-    in train the batch statistics from :func:`conv_bn_stats`,
+    On a square input whose size ``routing`` takes (``Routing.fwd``),
+    conv1 -> norm2 -> ReLU -> conv2 runs as one sandwich call with norm2
+    folded into an affine (the JAX ``_FoldedNorm``): running statistics in
+    eval, in train the batch statistics from :func:`conv_bn_stats`,
     differentiable, so the sandwich's dscale / dshift reach gamma, beta, x
-    and conv1 through them.  Its backward runs K1-K4 where ``bwd_routes``
-    says so, else autograd through the plain ops.  Elsewhere the layer runs
-    as separate ops, its 3x3 conv as :func:`growth_conv_matmul` where
-    ``growth_mode`` routes its size (``kernels/growth_conv.py``).  The
-    parameters are the same on every path.
+    and conv1 through them.  Its backward runs K1-K4 where ``Routing.bwd``
+    says so, else autograd through the plain ops.  Elsewhere the layer
+    runs as separate ops, its 3x3 conv as :func:`growth_conv_matmul` where
+    ``Routing.growth_conv`` says so.  The parameters are the same on every
+    path.
     """
 
     def __init__(self, in_ch: int, bn_size: int, growth: int = GROWTH,
-                 growth_mode: str = "off", fused_mode: str = "on"):
+                 routing: Routing = Routing()):
         super().__init__()
-        self.growth_mode = growth_mode
-        self.fused_mode = fused_mode
+        self.routing = routing
         c_mid = bn_size * growth
         self.norm1 = nn.BatchNorm2d(in_ch)
         self.conv1 = nn.Conv2d(in_ch, c_mid, 1, bias=False)
@@ -242,45 +212,71 @@ class DenseLayer(nn.Module):
         return h.contiguous(memory_format=CL).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        s = x.shape[-1]
-        if s == x.shape[-2] and routes(s, self.training, self.fused_mode,
-                                       dt):
+        dt, s, routing = x.dtype, x.shape[-1], self.routing
+        square = s == x.shape[-2]
+        if square and routing.fwd(s, self.training, dt):
             nhwc = self.front(x)
             # a rematerialized layer's recomputation runs no kernel: the
             # sandwich's backward reads its inputs alone
             return dense_sandwich_packed(
-                nhwc, self.weights(nhwc), bwd_routes(s, self.fused_mode, dt),
+                nhwc, self.weights(nhwc), routing.bwd(s, dt),
                 recomputing()).permute(0, 3, 1, 2)
         h = torch.relu(batch_norm(x, self.norm1).to(dt))
         h = conv(h, self.conv1)
         h = torch.relu(batch_norm(h, self.norm2).to(dt))
-        if growth_routes(s, self.training, self.growth_mode):
+        if square and routing.growth_conv(s):
             return growth_conv_matmul(h, self.conv2.weight)
         return conv(h, self.conv2)
 
 
 class DenseBlock(nn.Module):
     """torchvision _DenseBlock: each layer's 48 channels are concatenated
-    onto the running stack.  ``growth_mode``, ``fused_mode``: see
-    :class:`DenseLayer`.  With ``remat`` (``ModelConfig.remat``, the JAX
-    ``nn.remat(DenseLayer)``) each layer that autograd records runs under
-    ``torch.utils.checkpoint`` and keeps only its input; its backward runs
-    it again inside :func:`recompute`, where a routed layer launches no
-    forward kernel (its backward reads only its inputs)."""
+    onto the running stack.  ``routing`` goes to every layer.  With
+    ``remat`` (``ModelConfig.remat``, the JAX ``nn.remat(DenseLayer)``)
+    each layer that autograd records runs under ``torch.utils.checkpoint``
+    and keeps only its input; its backward runs it again inside
+    :func:`recompute`, where a routed layer launches no forward kernel (its
+    backward reads only its inputs).
+
+    Where :meth:`runs_flat` says so on the actual input (square, as the
+    JAX ``Encoder.block`` routes on the incoming shape: device-augment
+    init traces non-square shapes), the block runs in its own layout (the
+    JAX package's flat dense block): one NHWC buffer [B, S, S, C_final]
+    holds the whole stack, the block's input is copied once into channels
+    [0, C0), and each layer's F3 writes its 48 channels into their slot by
+    row stride, so no layer copies the stack.  Layer i computes h =
+    relu(norm1(buf[..., :C_in])) and norm2 folded
+    (:meth:`DenseLayer.norm2_affine`: running statistics in eval, the
+    batch statistics of ``conv_bn_stats`` in train), then F1-F3 into the
+    buffer.  Under autograd the block is one :class:`_FlatBlock` Function:
+    in-place writes into the buffer would bump the version of every view
+    an earlier layer saved.  Its backward always recomputes each layer's
+    h from the buffer (the role of ``nn.remat(FlatDenseLayer)``), whatever
+    ``remat`` says."""
 
     def __init__(self, num_layers: int, in_ch: int, bn_size: int,
-                 growth: int = GROWTH, growth_mode: str = "off",
-                 fused_mode: str = "on", remat: bool = False):
+                 growth: int = GROWTH, routing: Routing = Routing(),
+                 remat: bool = False):
         super().__init__()
-        self.fused_mode = fused_mode
+        self.routing = routing
         self.remat = remat
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}",
                             DenseLayer(in_ch + i * growth, bn_size, growth,
-                                       growth_mode, fused_mode))
+                                       routing))
+
+    def runs_flat(self, x: torch.Tensor) -> bool:
+        """Whether a call on ``x`` (NCHW) runs flat: a square size that
+        ``Routing.flat_block`` takes."""
+        s = x.shape[-1]
+        return s == x.shape[-2] and self.routing.flat_block(
+            s, self.training, x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.runs_flat(x):
+            params = [t for layer in self.children()
+                      for t in _layer_params(layer)]
+            return _FlatBlock.apply(self, x, *params)
         for layer in self.children():
             if self.remat and torch.is_grad_enabled():
                 y = checkpoint(layer, x, use_reentrant=False,
@@ -298,54 +294,8 @@ def _layer_params(layer: DenseLayer) -> tuple:
             layer.norm2.weight, layer.norm2.bias, layer.conv2.weight)
 
 
-class DenseBlockFlat(DenseBlock):
-    """The block in its own layout (the JAX ``DenseBlockFlat``): one NHWC
-    buffer [B, S, S, C_final] holds the whole stack, the block's input is
-    copied once into channels [0, C0), and each layer's F3 writes its 48
-    channels into their slot by row stride, so no layer copies the stack.
-    Parameters and their names are :class:`DenseBlock`'s.
-
-    The encoder's blocks are of this class; each call runs flat where
-    :meth:`runs_flat` says so on the actual input (square, as the JAX
-    ``Encoder.block`` routes on the incoming shape: device-augment init
-    traces non-square shapes), else as :class:`DenseBlock`.
-
-    Layer i computes h = relu(norm1(buf[..., :C_in])) and norm2 folded
-    (:meth:`DenseLayer.norm2_affine`: running statistics in eval, the
-    batch statistics of ``conv_bn_stats`` in train), then F1-F3 into the
-    buffer.  Under autograd the block is one :class:`_FlatBlock` Function:
-    in-place writes into the buffer would bump the version of every view
-    an earlier layer saved.  Its backward always recomputes each layer's
-    h from the buffer (the role of ``nn.remat(FlatDenseLayer)``), whatever
-    ``remat`` says."""
-
-    def __init__(self, num_layers: int, in_ch: int, bn_size: int,
-                 growth: int = GROWTH, growth_mode: str = "off",
-                 fused_mode: str = "on", remat: bool = False,
-                 flat_mode: str = "off"):
-        super().__init__(num_layers, in_ch, bn_size, growth, growth_mode,
-                         fused_mode, remat)
-        self.flat_mode = flat_mode
-
-    def runs_flat(self, x: torch.Tensor) -> bool:
-        """Whether a call on ``x`` (NCHW) runs flat: a square size that
-        ``flat_routes`` takes under ``flat_mode`` and whose every layer
-        routes its forward (and in train its backward) through the
-        kernels, so that no block runs flat on the cuDNN path."""
-        s, dt, train = x.shape[-1], x.dtype, self.training
-        return (s == x.shape[-2] and flat_routes(s, train, self.flat_mode, dt)
-                and routes(s, train, self.fused_mode, dt)
-                and (not train or bwd_routes(s, self.fused_mode, dt)))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.runs_flat(x):
-            return super().forward(x)
-        params = [t for layer in self.children() for t in _layer_params(layer)]
-        return _FlatBlock.apply(self, x, *params)
-
-
 class _FlatBlock(torch.autograd.Function):
-    """:class:`DenseBlockFlat`'s call.  The forward fills the buffer,
+    """A flat :class:`DenseBlock`'s call.  The forward fills the buffer,
     updates the running statistics once and keeps the final buffer (the
     output) and the data-parallel group.  The backward holds one cotangent
     buffer dbuf (the output's gradient) and walks the layers in reverse:
@@ -437,25 +387,20 @@ class Encoder(nn.Module):
     """DenseNet-161-style encoder: 226x226x3 -> conv7/2 -> maxpool ->
     dense(6, bn 57) @57 -> trans -> dense(12, bn 29) @29 -> trans ->
     dense(36, bn 15) @15 -> trans -> 8x8x1056.  Input and output are NCHW
-    in channels-last memory, in the compute dtype.  ``growth_mode`` (the
-    resolved ``ModelConfig.growth_matmul``) and ``fused_mode`` (the
-    resolved ``ModelConfig.fused_dense``) go to every dense layer;
-    ``remat`` (``ModelConfig.remat``) and ``flat_mode`` (the resolved
-    ``ModelConfig.flat_block``, :func:`resolve_flat`) to the three dense
-    blocks, each of which picks the flat or the plain form per call on
-    its actual input (:meth:`DenseBlockFlat.runs_flat`)."""
+    in channels-last memory, in the compute dtype.  ``routing`` and ``remat``
+    (``ModelConfig.remat``) go to the three dense blocks, each of which
+    picks the flat or the plain form per call on its actual input
+    (:meth:`DenseBlock.runs_flat`)."""
 
-    def __init__(self, growth_mode: str = "off", fused_mode: str = "on",
-                 remat: bool = False, flat_mode: str = "off"):
+    def __init__(self, routing: Routing = Routing(), remat: bool = False):
         super().__init__()
-        modes = {"growth_mode": growth_mode, "fused_mode": fused_mode,
-                 "remat": remat, "flat_mode": flat_mode}
+        opts = {"routing": routing, "remat": remat}
         self.conv_e1 = nn.Conv2d(3, 96, 7, stride=2, padding=3)
-        self.dense_e2 = DenseBlockFlat(6, 96, 57, **modes)
+        self.dense_e2 = DenseBlock(6, 96, 57, **opts)
         self.trans_e2 = Transition(384, 192)
-        self.dense_e3 = DenseBlockFlat(12, 192, 29, **modes)
+        self.dense_e3 = DenseBlock(12, 192, 29, **opts)
         self.trans_e3 = Transition(768, 384)
-        self.dense_e4 = DenseBlockFlat(36, 384, 15, **modes)
+        self.dense_e4 = DenseBlock(36, 384, 15, **opts)
         self.trans_e4 = Transition(2112, 1056)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,9 @@ import torch.nn as nn
 from md_rdm_tpu_torch.core import trace
 from md_rdm_tpu_torch.core.config import ModelConfig, decomposition_depth
 from md_rdm_tpu_torch.core.device import compute_dtype, no_tf32
-from md_rdm_tpu_torch.kernels.growth_conv import resolve_growth
 from md_rdm_tpu_torch.models.decoder import Decoder, relative_tail
-from md_rdm_tpu_torch.models.densenet import (Encoder, resolve_flat,
-                                             resolve_fused)
+from md_rdm_tpu_torch.models.densenet import Encoder
+from md_rdm_tpu_torch.models.routing import Routing
 from md_rdm_tpu_torch.ops.decompose import (decompose_depth_map,
                                             fine_detail_matrices, make_pred)
 from md_rdm_tpu_torch.ops.geometry import normalize_gm
@@ -72,14 +71,12 @@ class DepthEstimationNet(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig()):
         super().__init__()
         self.config = config
-        fused = resolve_fused(config.fused_dense)
-        self.encoder = Encoder(resolve_growth(config.growth_matmul), fused,
-                               config.remat,
-                               resolve_flat(config.flat_block, fused))
+        routing = Routing.of(config)
+        self.encoder = Encoder(routing, config.remat)
         for did in config.decoder_ids:
             self.add_module(f"d_{did}", Decoder(
                 did, config.ordinal_channels, config.soft_ordinal_decode,
-                fused))
+                routing))
         self.weight_layer = Weights(config.vector_sizes, config.fusion_init)
 
     def forward(self, images: torch.Tensor,

@@ -18,6 +18,7 @@ import torch.distributed as dist
 from md_rdm_tpu_torch.core import config as tcfg
 from md_rdm_tpu_torch.core import mesh as tmesh
 from md_rdm_tpu_torch.models import densenet as tdn
+from md_rdm_tpu_torch.models.routing import Routing
 from md_rdm_tpu_torch.models.rdm import (DepthEstimationNet, Weights,
                                          init_parameters)
 from md_rdm_tpu_torch.training import loop as tloop
@@ -195,10 +196,10 @@ def job_step(mesh, out: Path):
 # z form at 2 rows a rank.
 LAYERS = {"dense57": lambda: tdn.DenseLayer(96, 57),
           "transition": lambda: tdn.Transition(96, 48),
-          "dense29_routed": lambda: tdn.DenseLayer(192, 29,
-                                                   fused_mode="on_all_bwd"),
-          "dense15_routed": lambda: tdn.DenseLayer(384, 15,
-                                                   fused_mode="on_all_bwd")}
+          "dense29_routed": lambda: tdn.DenseLayer(
+              192, 29, routing=Routing("on_all_bwd")),
+          "dense15_routed": lambda: tdn.DenseLayer(
+              384, 15, routing=Routing("on_all_bwd"))}
 
 
 def _layer(name):
@@ -280,12 +281,12 @@ def job_loop(mesh, out: Path):
 # The blocks of ``tests/test_torch_remat.py``'s job: S=15, C0 96, bn_size
 # 2, 3 layers, rematerialized (routed both ways, and unrouted) and flat.
 BLOCKS = {
-    "remat_routed": lambda: tdn.DenseBlock(3, 96, 2, fused_mode="on_all_bwd",
-                                           remat=True),
-    "remat_off": lambda: tdn.DenseBlock(3, 96, 2, fused_mode="off",
+    "remat_routed": lambda: tdn.DenseBlock(
+        3, 96, 2, routing=Routing("on_all_bwd", "off"), remat=True),
+    "remat_off": lambda: tdn.DenseBlock(3, 96, 2, routing=Routing("off"),
                                         remat=True),
-    "flat": lambda: tdn.DenseBlockFlat(3, 96, 2, fused_mode="on_all_bwd",
-                                       flat_mode="on_all")}
+    "flat": lambda: tdn.DenseBlock(3, 96, 2,
+                                   routing=Routing("on_all_bwd", "on_all"))}
 
 
 @contextlib.contextmanager

@@ -10,8 +10,10 @@ import torch
 from _torch_parity import nhwc_to_torch, randomize_norms, rel_l2, \
     torch_to_nhwc
 from md_rdm_tpu.models import densenet as jdn
+from md_rdm_tpu_torch.core.config import ModelConfig
 from md_rdm_tpu_torch.kernels import dense_sandwich as ds
 from md_rdm_tpu_torch.models import densenet as tdn
+from md_rdm_tpu_torch.models.routing import Routing
 from md_rdm_tpu_torch.weights import from_jax_variables
 
 TOL = 1e-4
@@ -54,22 +56,22 @@ def test_dense_layer(s, c_in, bn, fused):
                                   "interpret", "off"])
 def test_routing_follows_the_eval_table(mode):
     """Each eval layer at S = 57/29/15 goes through the sandwich (norm2
-    folded) exactly when ``routes(s, False, resolve_fused(mode))`` says
-    so.  On CPU tensors the wrapper runs its plain version."""
+    folded) exactly when the routing of ``fused_dense=mode`` says so.  On
+    CPU tensors the wrapper runs its plain version."""
     calls = []
     orig = tdn.dense_sandwich_packed
     tdn.dense_sandwich_packed = (
         lambda *a: calls.append(a[0].shape) or orig(*a))
-    fused = tdn.resolve_fused(mode)
+    routing = Routing.of(ModelConfig(fused_dense=mode))
     try:
         with torch.no_grad():
             for s, bn in ((57, 57), (29, 29), (15, 15)):
-                layer = tdn.DenseLayer(96, bn, fused_mode=fused).eval()
+                layer = tdn.DenseLayer(96, bn, routing=routing).eval()
                 layer(torch.zeros(1, 96, s, s))
     finally:
         tdn.dense_sandwich_packed = orig
     assert calls == [(1, s, s, 96) for s in (57, 29, 15)
-                     if ds.routes(s, False, fused)]
+                     if routing.fwd(s, False, torch.float32)]
 
 
 def test_sandwich_weights_kept_until_a_weight_changes():

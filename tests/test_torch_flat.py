@@ -1,5 +1,5 @@
 """``ModelConfig.flat_block`` in the port: the dense block as one in-place
-NHWC buffer (``models/densenet.py::DenseBlockFlat``), on the CPU.
+NHWC buffer (``models/densenet.py::DenseBlock``'s flat form), on the CPU.
 
 F3's plain stage writing into a slot of a block's buffer and K1's and K4's
 plain stages reading the cotangent from such a slot equal their contiguous
@@ -7,8 +7,8 @@ selves bit for bit; the flat block against the port's plain block in eval
 and train (outputs, running statistics, every gradient); against the JAX
 ``DenseBlock(fused="off")`` with and without ``remat`` and against the
 JAX ``DenseBlockFlat(interpret=True)`` (its TPU kernels interpreted, eval
-forward and train statistics); and the routing: ``flat_routes`` /
-``resolve_flat`` per mode, the block's own choice on its input, and the
+forward and train statistics); and the routing: ``Routing.flat_block``
+and ``flat`` per mode, the block's own choice on its input, and the
 config and CLI reaching the encoder.  Blocks: ``tests/_torch_blocks.py``.
 """
 import jax
@@ -26,19 +26,20 @@ from md_rdm_tpu_torch.cli import train as cli_train
 from md_rdm_tpu_torch.core.config import ModelConfig
 from md_rdm_tpu_torch.kernels import dense_sandwich as ds
 from md_rdm_tpu_torch.models import densenet as tdn
+from md_rdm_tpu_torch.models import routing as rt
 from md_rdm_tpu_torch.models.rdm import DepthEstimationNet
+from md_rdm_tpu_torch.models.routing import Routing
 
 DTYPES = pytest.mark.parametrize("dtype", tb.DTYPES, ids=["f32", "bf16"])
-FLAT = {"fused_mode": "on_all_bwd", "flat_mode": "on_all"}
 
 
-def _flat_block(**kw):
-    return tdn.DenseBlockFlat(tb.LAYERS, tb.C0, tb.BN, **{**FLAT, **kw})
+def _flat_block(fused="on_all_bwd", flat="on_all", **kw):
+    return tdn.DenseBlock(tb.LAYERS, tb.C0, tb.BN,
+                          routing=Routing(fused, flat), **kw)
 
 
 def _plain_block(**kw):
-    return tdn.DenseBlock(tb.LAYERS, tb.C0, tb.BN, fused_mode="on_all_bwd",
-                          **kw)
+    return _flat_block(flat="off", **kw)
 
 
 # ---- the strided plain stages -----------------------------------------------
@@ -238,25 +239,31 @@ def test_flat_block_matches_jax_flat_block_interpreted():
 
 @pytest.mark.parametrize("mode", ["off", "on_all", "interpret"])
 def test_flat_routes_equal_jax(mode):
-    """Every mode but "on" routes the encoder's sizes as the JAX
-    package's ``flat_routes``, in both modes of the step."""
-    for s in sorted(ds.SUPPORTED):
+    """Every mode but "on" runs flat, where every layer routes both ways
+    ("on_all_bwd"), the encoder's blocks the JAX package's
+    ``flat_routes`` takes, in both modes of the step; no decoder block."""
+    r = Routing("on_all_bwd", mode)
+    for s in sorted(rt.ENCODER_SIZES):
         for train in (False, True):
             for dt in tb.DTYPES:
-                assert (ds.flat_routes(s, train, mode, dt)
+                assert (r.flat_block(s, train, dt)
                         == jds.flat_routes(s, train, mode)), (s, train)
-    assert ds.flat_sizes(mode) == jds.flat_sizes(mode)
-    assert not ds.flat_routes(8, False, "on_all")
+    assert jds.flat_sizes(mode) == {s for s in rt.ENCODER_SIZES
+                                    if r.flat_block(s, False, torch.float32)}
+    assert not r.flat_block(8, False, torch.float32)
 
 
 def test_flat_on_follows_the_port_tables():
-    """"on" takes exactly the port's measured tables, which hold only
-    supported sizes, per mode of the step and dtype."""
+    """"on" takes exactly the flat sizes of the port's measured table,
+    which hold only encoder sizes, per mode of the step and dtype, where
+    every layer routes."""
+    r = Routing("on_all_bwd", "on")
     for dt in tb.DTYPES:
-        for train, table in ((False, ds.FLAT_PROFITABLE_EVAL),
-                             (True, ds.FLAT_PROFITABLE_TRAIN)):
-            assert table[dt] <= ds.SUPPORTED
-            assert ds.flat_sizes("on", train, dt) == table[dt]
+        for train in (False, True):
+            table = rt.MEASURED[train, dt].flat
+            assert table <= rt.ENCODER_SIZES
+            assert {s for s in rt.ENCODER_SIZES
+                    if r.flat_block(s, train, dt)} == table
 
 
 @pytest.mark.parametrize("mode,fused,want", [
@@ -265,7 +272,7 @@ def test_flat_on_follows_the_port_tables():
     ("on_all", "off", "on_all"), ("off", "on", "off"),
     ("interpret", "on", "interpret")])
 def test_resolve_flat(mode, fused, want):
-    assert tdn.resolve_flat(mode, fused) == want
+    assert Routing(fused, mode).flat == want
 
 
 def test_block_runs_flat_only_where_every_layer_routes():
@@ -276,34 +283,38 @@ def test_block_runs_flat_only_where_every_layer_routes():
              ("on_all", False): True, ("on_all", True): False,
              ("off", False): False, ("off", True): False}
     for (fused, train), want in cases.items():
-        block = _flat_block(fused_mode=fused).train(train)
+        block = _flat_block(fused=fused).train(train)
         assert block.runs_flat(x) == want, (fused, train)
         assert not block.runs_flat(torch.zeros(1, tb.C0, tb.S, tb.S + 2))
-    assert not _flat_block(flat_mode="off").runs_flat(x)
-    assert not _flat_block(flat_mode="interpret").runs_flat(x)
+    assert not _flat_block(flat="off").runs_flat(x)
+    assert not _flat_block(flat="interpret").runs_flat(x)
 
 
 def test_encoder_takes_the_plain_block_on_a_non_square_input(monkeypatch):
     """Device-augment init runs the encoder on a raw, non-square frame
     (250 x 333): there each of the encoder's blocks, which choose on the
     shape they get, takes the plain form; on the square crop each runs
-    flat.  Both forms are stubbed: the choice is under test."""
+    flat.  The flat form and the plain form's layers are stubbed: the
+    choice is under test."""
     calls = []
 
-    def stub(form):
-        def call(block, x, *_):
-            calls.append((form, block))
-            return x
-        return call
+    def flat(block, x, *_):
+        calls.append(("flat", block))
+        return x
 
-    monkeypatch.setattr(tdn._FlatBlock, "apply", stub("flat"))
-    monkeypatch.setattr(tdn.DenseBlock, "forward", stub("plain"))
-    enc = tdn.Encoder(fused_mode="on_all_bwd", flat_mode="on_all").eval()
+    def layer(self, x):
+        calls.append(("layer", self))
+        return x.new_zeros((x.shape[0], 48, *x.shape[2:]))
+
+    monkeypatch.setattr(tdn._FlatBlock, "apply", flat)
+    monkeypatch.setattr(tdn.DenseLayer, "forward", layer)
+    enc = tdn.Encoder(Routing("on_all_bwd", "on_all")).eval()
     blocks = ((enc.dense_e2, 96, 57), (enc.dense_e3, 192, 29),
               (enc.dense_e4, 384, 15))
     for block, c, s in blocks:
         block(torch.zeros(1, c, s, s + 6))
-    assert calls == [("plain", b) for b, _, _ in blocks]
+    assert calls == [("layer", m) for b, _, _ in blocks
+                     for m in b.children()]
     calls.clear()
     for block, c, s in blocks:
         block(torch.zeros(1, c, s, s))
@@ -314,13 +325,20 @@ def test_encoder_takes_the_plain_block_on_a_non_square_input(monkeypatch):
     ("auto", "auto", "on"), ("off", "auto", "off"),
     ("on_all", "off", "on_all"), ("auto", "off", "off")])
 def test_model_config_reaches_every_encoder_block(flat, fused, want):
+    """The resolved mode reaches the encoder's three blocks; the
+    decoder's block, of the same routing, never runs flat."""
     model = DepthEstimationNet(ModelConfig(flat_block=flat, fused_dense=fused))
     blocks = [m for m in model.encoder.modules()
               if isinstance(m, tdn.DenseBlock)]
     assert len(blocks) == 3
-    assert {type(b) for b in blocks} == {tdn.DenseBlockFlat}
-    assert {b.flat_mode for b in blocks} == {want}
-    assert not isinstance(model.d_1.dense_layer, tdn.DenseBlockFlat)
+    assert {type(b) for b in blocks} == {tdn.DenseBlock}
+    assert {b.routing.flat for b in blocks} == {want}
+    dec = model.d_1.dense_layer
+    assert dec.routing is blocks[0].routing
+    for train in (False, True):
+        for dt in tb.DTYPES:
+            assert not dec.train(train).runs_flat(
+                torch.zeros(1, 1056, 8, 8, dtype=dt))
 
 
 def test_cli_flat_block_reaches_the_model():
@@ -331,5 +349,5 @@ def test_cli_flat_block_reaches_the_model():
     config = cli_train.build_config(args)
     assert config.model.flat_block == "on_all"
     model = DepthTrainer(config, device="cpu").init(seed=0).model
-    assert {m.flat_mode for m in model.encoder.modules()
-            if isinstance(m, tdn.DenseBlockFlat)} == {"on_all"}
+    assert {m.routing.flat for m in model.encoder.modules()
+            if isinstance(m, tdn.DenseBlock)} == {"on_all"}

@@ -10,11 +10,13 @@ import torch.nn.functional as F
 
 from _torch_parity import rel_l2
 from md_rdm_tpu.kernels import growth_conv as jgc
+from md_rdm_tpu.models import densenet as jdn
 from md_rdm_tpu_torch.core.config import ModelConfig
-from md_rdm_tpu_torch.kernels import dense_sandwich as ds
 from md_rdm_tpu_torch.kernels import growth_conv as tgc
 from md_rdm_tpu_torch.models import densenet as tdn
+from md_rdm_tpu_torch.models import routing as rt
 from md_rdm_tpu_torch.models.rdm import DepthEstimationNet
+from md_rdm_tpu_torch.models.routing import Routing
 
 # float32: max abs against JAX and F.conv2d (sums of up to 9 * 24 products
 # of O(1) terms); bfloat16: relL2, the port rounding the product's output
@@ -83,22 +85,28 @@ def test_gradients_match_conv():
 
 @pytest.mark.parametrize("mode", ["auto", "on", "on_all", "off"])
 def test_routes_equal_jax(mode):
+    """The routing takes the layers the JAX model's ``growth_routes``
+    does: at the encoder's sizes under the mode as the JAX package
+    resolves it off the TPU, at the decoders' S=8 under its decoders'
+    dense block's own growth mode, the default "off"."""
+    r = Routing(growth=mode)
+    jmode = "off" if mode == "auto" else mode
+    assert jdn.DenseBlock.__dataclass_fields__["growth"].default == "off"
     for s in (8, 15, 29, 57):
         for train in (False, True):
-            assert (tgc.growth_routes(s, train, tgc.resolve_growth(mode))
-                    == jgc.growth_routes(s, train, "off" if mode == "auto"
-                                         else mode))
-    assert tgc.resolve_growth("auto") == "off"
+            assert r.growth_conv(s) == jgc.growth_routes(
+                s, train, jmode if s in rt.ENCODER_SIZES else "off")
+    assert r.growth == jmode
 
 
 def _block_pair(train: bool):
     """An S=15 block with every 3x3 conv cuDNN's, and one with every 3x3
     conv the formulation's (the sandwich kernels take no layer of
-    either: ``fused_mode="off"``), on the same weights."""
+    either: ``fused_dense="off"``), on the same weights."""
     torch.manual_seed(0)
-    plain = tdn.DenseBlock(3, 32, 15, fused_mode="off")
-    routed = tdn.DenseBlock(3, 32, 15, growth_mode="on_all",
-                            fused_mode="off")
+    plain = tdn.DenseBlock(3, 32, 15, routing=Routing("off"))
+    routed = tdn.DenseBlock(3, 32, 15, routing=Routing("off",
+                                                       growth="on_all"))
     routed.load_state_dict(plain.state_dict())
     for block in (plain, routed):
         block.train(train)
@@ -171,7 +179,7 @@ def test_sandwich_takes_precedence_over_growth_matmul(monkeypatch, fused,
                                                       dtype):
     """With both routings on (growth_matmul="on_all"), a layer the
     sandwich takes never reaches the growth formulation: in eval the
-    formulation gets exactly the encoder layers ``routes`` leaves out
+    formulation gets exactly the encoder layers ``Routing.fwd`` leaves out
     (none under "on_all"; under the bf16 default the S=15 block's 36),
     and the sandwich every other layer."""
     growth, sandwich = [], []
@@ -187,9 +195,8 @@ def test_sandwich_takes_precedence_over_growth_matmul(monkeypatch, fused,
         growth_matmul="on_all", fused_dense=fused)).eval()
     with torch.no_grad():
         model.encoder(x.permute(0, 3, 1, 2).to(dtype))
-    mode = tdn.resolve_fused(fused)
     want_g = {s: n for s, n in ENCODER_LAYERS.items()
-              if not ds.routes(s, False, mode, dtype)}
+              if not Routing(fused).fwd(s, False, dtype)}
     if fused == "on_all":
         assert want_g == {}
     if dtype == torch.bfloat16:

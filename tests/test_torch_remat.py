@@ -32,6 +32,7 @@ from md_rdm_tpu_torch.core.config import ModelConfig
 from md_rdm_tpu_torch.kernels import dense_sandwich as ds
 from md_rdm_tpu_torch.models import densenet as tdn
 from md_rdm_tpu_torch.models.rdm import DepthEstimationNet
+from md_rdm_tpu_torch.models.routing import Routing
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_dist  # noqa: E402
@@ -44,8 +45,8 @@ STAGES = ("fwd_stages_reference", "dense_sandwich_reference",
 
 
 def _block(fused, remat):
-    return tdn.DenseBlock(tb.LAYERS, tb.C0, tb.BN, fused_mode=fused,
-                          remat=remat)
+    return tdn.DenseBlock(tb.LAYERS, tb.C0, tb.BN,
+                          routing=Routing(fused, "off"), remat=remat)
 
 
 @DTYPES

@@ -1,8 +1,9 @@
 """``ModelConfig.fused_dense`` in the port against the JAX package, on the
 CPU.
 
-The routing functions against JAX's for every mode but "on" / "auto" (the
-port's tables are its own, from H100 measurement); routed S=29 and S=15
+The routing (``models/routing.py``) against JAX's routing functions for
+every mode but "on" / "auto" (the port's table is its own, from H100
+measurement), and the kernel launches per call it gives; routed S=29 and S=15
 dense layers and blocks at their true widths against the JAX layers with
 ``fused="interpret"`` (the TPU kernels interpreted: the function the
 port's kernels compute) on the same weights, in train mode (outputs,
@@ -34,7 +35,9 @@ from md_rdm_tpu_torch.cli import train as cli_train
 from md_rdm_tpu_torch.core.config import ModelConfig
 from md_rdm_tpu_torch.kernels import dense_sandwich as ds
 from md_rdm_tpu_torch.models import densenet as tdn
+from md_rdm_tpu_torch.models import routing as rt
 from md_rdm_tpu_torch.models.rdm import DepthEstimationNet
+from md_rdm_tpu_torch.models.routing import Routing
 from md_rdm_tpu_torch.weights import from_jax_variables, to_jax_variables
 
 MODES = ("off", "on_all", "on_all_bwd", "interpret")
@@ -46,58 +49,66 @@ BWD_STAGES = ("dense_sandwich_bwd", "bwd_recompute", "bwd_dx", "bwd_dw1",
               "bwd_dw1_reference", "bwd_dw2_reference")
 
 
-# ---- the routing functions --------------------------------------------------
+# ---- the routing -----------------------------------------------------------
+
+DTS = (torch.float32, torch.bfloat16)
+
 
 @pytest.mark.parametrize("mode", MODES)
 def test_routes_equal_jax(mode):
     """Every mode but "on" routes as in the JAX package, given as is and
     resolved."""
     for s in (57, 29, 15, 8):
-        assert ds.supported_spatial(s) == jds.supported_spatial(s)
-        for m in (mode, tdn.resolve_fused(mode)):
-            assert ds.bwd_routes(s, m) == jds.bwd_routes(s, mode), (s, m)
-            for train in (False, True):
-                for dt in (torch.float32, torch.bfloat16):
-                    assert (ds.routes(s, train, m, dt)
-                            == jds.routes(s, train, mode)), (s, train, m)
+        assert (s in rt.ENCODER_SIZES) == jds.supported_spatial(s)
+        for r in (Routing(mode), Routing(Routing(mode).fused)):
+            for dt in DTS:
+                assert r.bwd(s, dt) == jds.bwd_routes(s, mode), (s, r)
+                for train in (False, True):
+                    assert (r.fwd(s, train, dt)
+                            == jds.routes(s, train, mode)), (s, train, r)
 
 
 def test_on_follows_the_port_tables():
-    """"on" (and "auto", which resolves to it on every device) routes
-    exactly the sizes in the port's tables, per mode of the step and
-    dtype; the eval tables hold sizes the kernels take (the encoder's and
-    the decoders' S=8), the train, backward and flat tables the encoder's
-    (the JAX package's) only, and S=57 is in every one."""
-    assert tdn.resolve_fused("auto") == "on"
-    assert tdn.resolve_fused("interpret") == "on_all_bwd"
-    assert ds.KERNEL_SIZES == ds.SUPPORTED | {8}
-    for dt in (torch.float32, torch.bfloat16):
-        assert 57 in ds.PROFITABLE_EVAL[dt]
-        assert ds.PROFITABLE_EVAL[dt] <= ds.KERNEL_SIZES
-        for table in (ds.PROFITABLE_TRAIN, ds.BWD_PROFITABLE):
-            assert 57 in table[dt] and table[dt] <= ds.SUPPORTED
-        for table in (ds.FLAT_PROFITABLE_EVAL, ds.FLAT_PROFITABLE_TRAIN):
-            assert table[dt] <= ds.SUPPORTED
+    """"on" (and "auto", which resolves to it on every device, and is
+    ``ModelConfig()``'s) routes exactly the sizes in the port's measured
+    table, per mode of the step and dtype, and the backward at its train
+    sizes in either mode; the eval sizes are ones the kernels take (the
+    encoder's and the decoders' S=8), the train and flat sizes the
+    encoder's (the JAX package's) only, and S=57 is in every layers entry.
+    The kernel module holds no routing."""
+    assert Routing("auto") == Routing("on") == Routing()
+    assert Routing.of(ModelConfig()) == Routing()
+    assert Routing("interpret") == Routing("on_all_bwd")
+    assert set(rt.MEASURED) == {(t, dt) for t in (False, True) for dt in DTS}
+    on = Routing("on")
+    for dt in DTS:
+        for train in (False, True):
+            sizes = rt.MEASURED[train, dt]
+            assert 57 in sizes.layers
+            assert sizes.layers <= (rt.ENCODER_SIZES if train
+                                    else rt.ENCODER_SIZES | {8})
+            assert sizes.flat <= rt.ENCODER_SIZES
+            for s in (57, 29, 15, 8):
+                assert on.fwd(s, train, dt) == (s in sizes.layers)
         for s in (57, 29, 15, 8):
-            assert ds.routes(s, False, "on", dt) == (
-                s in ds.PROFITABLE_EVAL[dt])
-            assert ds.routes(s, True, "on", dt) == (
-                s in ds.PROFITABLE_TRAIN[dt])
-            assert ds.bwd_routes(s, "on", dt) == (s in ds.BWD_PROFITABLE[dt])
-    assert not hasattr(ds, "ROUTED_SIZES")
+            assert on.bwd(s, dt) == (s in rt.MEASURED[True, dt].layers)
+    assert not any(hasattr(ds, n) for n in ("routes", "bwd_routes",
+                                            "flat_routes", "SUPPORTED"))
 
 
 @pytest.mark.parametrize("fused,want", [("off", "off"), ("auto", "on"),
                                         ("on_all", "on_all"),
                                         ("interpret", "on_all_bwd")])
 def test_model_config_reaches_every_dense_layer(fused, want):
-    """The resolved mode reaches every dense layer of the model: the
-    encoder's and each decoder's, a relative one's too."""
+    """The model's one routing, resolved, reaches every dense layer of the
+    model: the encoder's and each decoder's, a relative one's too."""
     model = DepthEstimationNet(ModelConfig(fused_dense=fused,
                                            decoder_ids=(1, 6)))
     layers = [m for m in model.modules() if isinstance(m, tdn.DenseLayer)]
     assert len(layers) == 54 + 2 * 24
-    assert {m.fused_mode for m in layers} == {want}
+    assert {m.routing.fused for m in layers} == {want}
+    assert {id(m.routing) for m in layers} == {id(model.encoder.dense_e2
+                                                   .routing)}
 
 
 def test_cli_fused_dense_reaches_the_model():
@@ -109,9 +120,33 @@ def test_cli_fused_dense_reaches_the_model():
     config = cli_train.build_config(args)
     assert config.model.fused_dense == "off"
     model = DepthTrainer(config, device="cpu").init(seed=0).model
-    modes = {m.fused_mode for m in model.modules()
+    modes = {m.routing.fused for m in model.modules()
              if isinstance(m, tdn.DenseLayer)}
     assert modes == {"off"}
+
+
+# Dense layers per block: the encoder's three, and each decoder's S=8 one.
+ENCODER_LAYERS = {57: 6, 29: 12, 15: 36}
+DECODER_LAYERS = 24
+
+
+@pytest.mark.parametrize("decoders,dtype,train,want", [
+    ((1,), torch.float32, False, 78), ((1, 6, 7, 8, 9), torch.float32, False,
+                                       174),
+    ((1,), torch.bfloat16, False, 18), ((1,), torch.float32, True, 18),
+    ((1,), torch.bfloat16, True, 6)],
+    ids=["live-f32-eval", "optimal-f32-eval", "live-bf16-eval",
+         "live-f32-train", "live-bf16-train"])
+def test_default_launches_per_call(decoders, dtype, train, want):
+    """The default configuration's kernel launches, from the layer counts
+    per block and the routing's decisions: each of F1-F3 per forward, and
+    in train each of K1-K4 per step (the same layers: in train the
+    default routes both ways or neither)."""
+    routing = Routing.of(ModelConfig(decoder_ids=decoders))
+    blocks = {**ENCODER_LAYERS, 8: DECODER_LAYERS * len(decoders)}
+    for bwd in (False, True) if train else (False,):
+        assert sum(n for s, n in blocks.items()
+                   if routing.launches(s, train, dtype, bwd)) == want
 
 
 # ---- routed layers and blocks against the JAX package -----------------------
@@ -203,7 +238,7 @@ def test_routed_layer_matches_jax_interpret(s, c_in, b, dtype):
     output, running statistics, dx and every parameter's gradient."""
     r = _train_pair(jdn.DenseLayer(s, 48, dtype=JAX_DT[dtype],
                                    fused="interpret"),
-                    tdn.DenseLayer(c_in, s, fused_mode="on_all_bwd"),
+                    tdn.DenseLayer(c_in, s, routing=Routing("on_all_bwd")),
                     _x((b, s, s, c_in), s + c_in, dtype), s, dtype)
     assert r["out"][0].shape == (b, s, s, 48)
     _check(r, dtype)
@@ -218,7 +253,8 @@ def test_routed_block_matches_jax_interpret(s, c_in, n, dtype):
     norm's bias) move past the bar alone."""
     r = _train_pair(jdn.DenseBlock(n, s, 48, dtype=JAX_DT[dtype],
                                    fused="interpret"),
-                    tdn.DenseBlock(n, c_in, s, fused_mode="on_all_bwd"),
+                    tdn.DenseBlock(n, c_in, s,
+                                   routing=Routing("on_all_bwd", "off")),
                     _x((1, s, s, c_in), s, dtype), s + 1, dtype)
     assert r["out"][0].shape == (1, s, s, c_in + n * 48)
     _check(r, dtype, per_tensor_grads=False)
@@ -238,7 +274,7 @@ def test_routed_layer_eval_matches_jax_interpret(s, c_in, dtype):
     sd = from_jax_variables(v["params"], v["batch_stats"])
     got = {}
     for mode in ("on", "on_all", "off"):
-        layer = tdn.DenseLayer(c_in, s, fused_mode=mode).eval()
+        layer = tdn.DenseLayer(c_in, s, routing=Routing(mode)).eval()
         layer.load_state_dict(sd)
         with torch.no_grad():
             got[mode] = torch_to_nhwc(layer(
@@ -246,7 +282,7 @@ def test_routed_layer_eval_matches_jax_interpret(s, c_in, dtype):
     tol = TOL[dtype]["out"]
     assert rel_l2(got["on_all"], want) < tol
     assert rel_l2(got["on_all"], got["off"]) < tol
-    if ds.routes(s, False, "on", dtype):
+    if Routing("on").fwd(s, False, dtype):
         np.testing.assert_array_equal(got["on"], got["on_all"])
     else:
         np.testing.assert_array_equal(got["on"], got["off"])
@@ -265,7 +301,7 @@ def _sandwich_calls(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [
     dt for dt in (torch.float32, torch.bfloat16)
-    if 8 in ds.PROFITABLE_EVAL[dt]], ids=DT_IDS)
+    if 8 in rt.MEASURED[False, dt].layers], ids=DT_IDS)
 @pytest.mark.parametrize("c_in,n,b", [(1056, 3, 2), (2160, 1, 1)])
 def test_decoder_block_routed_eval_matches_jax(monkeypatch, c_in, n, b,
                                                dtype):
@@ -284,7 +320,7 @@ def test_decoder_block_routed_eval_matches_jax(monkeypatch, c_in, n, b,
     calls = _sandwich_calls(monkeypatch)
     got = {}
     for mode in ("on", "off"):
-        block = tdn.DenseBlock(n, c_in, 8, fused_mode=mode).eval()
+        block = tdn.DenseBlock(n, c_in, 8, routing=Routing(mode)).eval()
         block.load_state_dict(sd)
         with torch.no_grad():
             got[mode] = torch_to_nhwc(block(
@@ -302,12 +338,13 @@ def test_decoder_layer_unrouted_in_train(monkeypatch, dtype):
     (no sandwich call, no folded batch statistics), forward and backward,
     and goes through the sandwich in eval exactly where the eval table
     holds S=8 for the dtype."""
+    on = Routing("on")
     calls = _sandwich_calls(monkeypatch)
     stats = []
     orig = tdn.conv_bn_stats
     monkeypatch.setattr(tdn, "conv_bn_stats", lambda *a: (
         stats.append(1), orig(*a))[1])
-    layer = tdn.DenseLayer(1056, 8, fused_mode="on")
+    layer = tdn.DenseLayer(1056, 8, routing=on)
     x = torch.randn(2, 1056, 8, 8).to(dtype).contiguous(
         memory_format=torch.channels_last).requires_grad_()
     layer.train()(x).float().sum().backward()
@@ -315,9 +352,9 @@ def test_decoder_layer_unrouted_in_train(monkeypatch, dtype):
     assert x.grad is not None
     with torch.no_grad():
         layer.eval()(x)
-    assert len(calls) == int(ds.routes(8, False, "on", dtype))
-    assert not ds.routes(8, True, "on", dtype)
-    assert not ds.bwd_routes(8, "on", dtype)
+    assert len(calls) == int(on.fwd(8, False, dtype))
+    assert not on.fwd(8, True, dtype)
+    assert not on.bwd(8, dtype)
 
 
 # ---- the forward-routed, backward-unrouted split ----------------------------
@@ -335,7 +372,7 @@ def _stage_calls(monkeypatch):
 
 def _block_grads(mode, dtype=torch.float32):
     torch.manual_seed(0)
-    block = tdn.DenseBlock(2, 384, 15, fused_mode=mode)
+    block = tdn.DenseBlock(2, 384, 15, routing=Routing(mode, "off"))
     x = torch.randn(2, 384, 15, 15, generator=torch.Generator().manual_seed(
         1)).to(dtype).contiguous(memory_format=torch.channels_last)
     x.requires_grad_()
@@ -378,7 +415,7 @@ def test_off_calls_no_sandwich(monkeypatch):
             monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
                                 calls.append(_n))
     for s in (57, 29, 15):
-        layer = tdn.DenseLayer(96, s, fused_mode="off")
+        layer = tdn.DenseLayer(96, s, routing=Routing("off"))
         x = torch.randn(1, 96, s, s, requires_grad=True)
         layer.train()(x).sum().backward()
         with torch.no_grad():
@@ -390,18 +427,19 @@ def test_off_calls_no_sandwich(monkeypatch):
                                     ("interpret", 15), ("on", 57)])
 def test_routed_layer_calls_the_sandwich(monkeypatch, mode, s):
     """The routed layer goes through the sandwich in both modes of the
-    step, and K1-K4 run where ``bwd_routes`` says so."""
+    step, and K1-K4 run where ``Routing.bwd`` says so."""
     calls = _stage_calls(monkeypatch)
     packed = []
     orig = tdn.dense_sandwich_packed
     monkeypatch.setattr(tdn, "dense_sandwich_packed", lambda *a: (
         packed.append(a[2]), orig(*a))[1])
-    layer = tdn.DenseLayer(96, s, fused_mode=tdn.resolve_fused(mode))
+    routing = Routing(mode)
+    layer = tdn.DenseLayer(96, s, routing=routing)
     x = torch.randn(1, 96, s, s, requires_grad=True)
     layer.train()(x).sum().backward()
     with torch.no_grad():
         layer.eval()(x)
-    bwd = ds.bwd_routes(s, tdn.resolve_fused(mode))
+    bwd = routing.bwd(s, torch.float32)
     assert packed == [bwd, bwd]
     assert ("dense_sandwich_bwd" in calls) == bwd
 

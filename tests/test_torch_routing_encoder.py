@@ -24,6 +24,7 @@ from _torch_parity import nhwc_to_torch, rel_l2, torch_to_nhwc
 from md_rdm_tpu.models import densenet as jdn
 from md_rdm_tpu_torch.models import densenet as tdn
 from md_rdm_tpu_torch.models.rdm import init_parameters, randomize_batchnorm
+from md_rdm_tpu_torch.models.routing import Routing
 from md_rdm_tpu_torch.weights import to_jax_variables
 
 FLOOR_FACTOR = 5
@@ -39,7 +40,7 @@ def _leaves(tree, prefix=()):
 
 @pytest.fixture(scope="module")
 def pair():
-    enc = tdn.Encoder(fused_mode="on_all_bwd")
+    enc = tdn.Encoder(Routing("on_all_bwd", "off"))
     init_parameters(enc, 0)
     randomize_batchnorm(enc, 1)
     sd = {k: v.clone() for k, v in enc.state_dict().items()}
