@@ -207,6 +207,18 @@ Phases, one JSON line each:
                   enqueue, idle share, the host operations that take the
                   most host time; the train steps with remat on), each
                   graph pool's bytes and the peak memory of a call.
+  20. wsm       - (run after phase 11) each WSM stage of an optimal-set
+                  forward (stages 1-3) at batch 16 in float32, TF32 off:
+                  its matrix products (models/wsm.py) against the cuDNN
+                  sequence they replace (library_wsm): the output
+                  (WSM_TOL), captured device time in turns (ms,
+                  library_ms) beside the bound, the peak memory an eager
+                  call adds, the counters wsm.gemm and wsm.gemm.kxk; each
+                  part (input adjustment, transposed conv, 1x1 branches,
+                  3x3, 5x5, strips) timed both ways beside its bound; the
+                  3x3 and 5x5 in both forms (tap products, cuDNN on the
+                  contiguous channels-last columns) and the form
+                  TAP_SHAPES gives the shape.
 Phases 5, 10, 13-15, 17 and 18 serve through Predictor and train through
 Trainer on their defaults, so on the card their forwards and loop steps
 are captured too.  A kernel's wrapper counts a launch where it runs (a
@@ -239,7 +251,8 @@ phases 1, 2 and 14 (with no bare step to compare the CLI's with), and
 phases 1, 2 and 16, ``--routing-only`` phases 1, 2, 3 at the S=29, S=15
 and S=8 layers only, 4 at the S=29 and S=15 layers, and 17,
 ``--flat-only`` phases 1, 2 and 18,
-``--graph-only`` phases 1, 2 and 19, ``--split-only`` phases 1, 2, 3,
+``--graph-only`` phases 1, 2 and 19, ``--wsm-only`` phases 1, 2 and 20,
+``--split-only`` phases 1, 2, 3,
 the split sweep (F1 and F2 timed at every split of K the rule may take,
 at three layers of each encoder block and of the decoders' block,
 ``phase_split_sweep``) and the forward times; they
@@ -5201,6 +5214,225 @@ def graph_cli(tmp: str, fns) -> dict:
     return out
 
 
+# The WSM stages of an optimal-set forward (decoders 7-9 run stages 1,
+# 1-2 and 1-3), and the bar of a stage's products against the cuDNN
+# sequence they replace: both float32, TF32 off, summed in other orders.
+WSM_PHASE_STAGES = (1, 2, 3)
+WSM_TOL = 1e-5
+
+
+def library_wsm(layer, x):
+    """The F.conv2d sequence a WSM stage ran before its products: cuDNN's
+    1x1, transposed, 3x3, 5x5 and strip convolutions on NCHW views of
+    channels-last activations, the strips tiled, the five branches
+    concatenated."""
+    from md_rdm_tpu_torch.models.densenet import conv
+    F = torch.nn.functional
+    cl = torch.channels_last
+    dt = x.dtype
+    x = conv(x, layer.input_adjustment_layer)
+    de = layer.deconv1[0]
+    up = F.conv_transpose2d(x, de.weight.to(dt), de.bias.to(dt),
+                            stride=2).contiguous(memory_format=cl)
+    s = layer.strip_size
+    o11 = conv(up, layer.conv1_1)
+    o21 = conv(conv(up, layer.conv1_2), layer.conv2_1)
+    o22 = conv(conv(up, layer.conv1_3), layer.conv2_2)
+    col = conv(F.pad(conv(up, layer.conv1_4), (0, 0, 1, 1)),
+               layer.wsm_wx3[1])
+    row = conv(F.pad(conv(up, layer.conv1_5), (1, 1, 0, 0)),
+               layer.wsm_3xh[1])
+    b, cw, h, _ = col.shape
+    out = torch.cat([o11, o21, o22, row.expand(b, cw, s, row.shape[3]),
+                     col.expand(b, cw, h, s)], 1)
+    return out.contiguous(memory_format=cl)
+
+
+def wsm_work(c: int, raw: int, n: int, batch: int) -> dict:
+    """Float32 operations and bytes (inputs and weights read once, outputs
+    written once) of each part of a stage of width c on raw channels at
+    n x n: part -> (operations, bytes)."""
+    q, w, s = c // 4, c // 8, 2 * n
+    px_in, px = batch * n * n, batch * s * s
+    work = {"adj": (2 * px_in * raw * c, px_in * (raw + c) + raw * c),
+            "deconv": (2 * px_in * c * 4 * c, (px_in + px) * c + 4 * c * c),
+            "1x1": (2 * px * c * c, 2 * px * c + c * c),
+            "3x3": (2 * px * q * q * 9, 2 * px * q + 9 * q * q),
+            "5x5": (2 * px * q * q * 25, 2 * px * q + 25 * q * q),
+            "strips": (2 * 2 * batch * s * 3 * s * w * w,
+                       2 * (px * w + batch * s * w + 3 * s * w * w))}
+    return {k: (f, 4 * b) for k, (f, b) in work.items()}
+
+
+def wsm_parts(layer, x) -> dict:
+    """Each part of a stage: (the stage's products, the cuDNN call they
+    replace), on the inputs the stage computes for it."""
+    from md_rdm_tpu_torch.models import wsm
+    from md_rdm_tpu_torch.models.densenet import conv
+    F = torch.nn.functional
+    cl = torch.channels_last
+    b, raw, n, _ = x.shape
+    ia, de = layer.input_adjustment_layer, layer.deconv1[0]
+    c, s = de.in_channels, 2 * n
+    q = c // 4
+    rows = x.permute(0, 2, 3, 1).reshape(-1, raw)
+    w_in = ia.weight.view(c, raw).t()
+    h = torch.addmm(ia.bias, rows, w_in)
+    h_cl = conv(x, ia)
+    w_de = de.weight.view(c, 4 * c)
+
+    def deconv():
+        up = torch.mm(h, w_de).view(b, n, n, c, 2, 2)
+        return up.permute(0, 1, 4, 2, 5, 3).reshape(-1, c)
+
+    up, branches = deconv(), (layer.conv1_1, layer.conv1_2, layer.conv1_3,
+                              layer.conv1_4, layer.conv1_5)
+    up_cl = F.conv_transpose2d(h_cl, de.weight, de.bias, stride=2
+                               ).contiguous(memory_format=cl)
+    w1 = torch.cat([m.weight.view(-1, c) for m in branches])
+    b1 = torch.cat([m.bias for m in branches])
+    p = torch.addmm(b1, up, w1.t()).view(b, s, s, c)
+    budget = p.numel()
+    mid = {name: conv(up_cl, m) for name, m in
+           (("3x3", layer.conv1_2), ("5x5", layer.conv1_3),
+            ("col", layer.conv1_4), ("row", layer.conv1_5))}
+    wx3, w3h = layer.wsm_wx3[1], layer.wsm_3xh[1]
+
+    return {
+        "adj": (lambda: torch.addmm(ia.bias, rows, w_in),
+                lambda: conv(x, ia)),
+        "deconv": (deconv, lambda: F.conv_transpose2d(
+            h_cl, de.weight, de.bias, stride=2).contiguous(memory_format=cl)),
+        "1x1": (lambda: torch.addmm(b1, up, w1.t()),
+                lambda: [conv(up_cl, m) for m in branches]),
+        "3x3": (lambda: wsm._square_conv(p[..., q:2 * q], layer.conv2_1,
+                                         budget),
+                lambda: conv(mid["3x3"], layer.conv2_1)),
+        "5x5": (lambda: wsm._square_conv(p[..., 2 * q:3 * q],
+                                         layer.conv2_2, budget),
+                lambda: conv(mid["5x5"], layer.conv2_2)),
+        "strips": (lambda: layer.strips(p, budget), lambda: (
+            conv(F.pad(mid["col"], (0, 0, 1, 1)), wx3),
+            conv(F.pad(mid["row"], (1, 1, 0, 0)), w3h))),
+    }, {"p": p, "budget": budget}
+
+
+def wsm_kxk_forms(layer, p, budget) -> dict:
+    """Both forms of the stage's 3x3 and 5x5 on its columns of the 1x1
+    product, captured (the lesser of two turns): tap products and cuDNN on
+    the contiguous channels-last copy; the form TAP_SHAPES gives the shape,
+    and whether the faster form is it (a report: ties move between runs)."""
+    from md_rdm_tpu_torch.models import wsm
+    from md_rdm_tpu_torch.models.densenet import conv
+    c = p.shape[3]
+    q = c // 4
+    out = {}
+    for name, lay, z in (("3x3", layer.conv2_1, p[..., q:2 * q]),
+                         ("5x5", layer.conv2_2, p[..., 2 * q:3 * q])):
+        k = lay.kernel_size[0]
+        frames = torch.nn.functional.pad(z, (0, 0) + (k // 2,) * 4)
+        wm = lay.weight.permute(1, 2, 3, 0).reshape(-1, k * k * q)
+        forms = {
+            "taps": lambda f=frames, wm=wm, k=k, lay=lay: wsm._tap_conv(
+                f, wm, k, k, lay.bias, budget),
+            "cudnn": lambda z=z, lay=lay: conv(
+                z.permute(0, 3, 1, 2).contiguous(
+                    memory_format=torch.channels_last), lay)}
+        err = rel_l2(forms["taps"](), forms["cudnn"]().permute(0, 2, 3, 1))
+        t = {f: [] for f in forms}
+        for f in ("taps", "cudnn", "cudnn", "taps"):
+            t[f].append(graph_ms(forms[f], 5))
+        ms = {f: min(v) for f, v in t.items()}
+        taken = ("taps" if (k, q, z.shape[1]) in wsm.TAP_SHAPES
+                 else "cudnn")
+        out[name] = {"shape": [k, q, z.shape[1]], "form": taken,
+                     "taps_ms": ms["taps"], "cudnn_ms": ms["cudnn"],
+                     "faster": min(ms, key=ms.get),
+                     "taken_is_faster": taken == min(ms, key=ms.get),
+                     "taps_vs_cudnn_rel_l2": err}
+        check(err < WSM_TOL, f"wsm: taps against cuDNN {name} {out[name]}")
+    return out
+
+
+def phase_wsm(smi) -> list:
+    """Each WSM stage of an optimal-set forward at batch 16 in float32,
+    TF32 off, eager and captured: the stage's products against the cuDNN
+    sequence they replace (``library_wsm``): output (WSM_TOL), device time
+    of captured calls in turns (``ms``, ``library_ms``), the peak memory
+    an eager call adds, its counters (one ``wsm.gemm``, one
+    ``wsm.gemm.kxk`` per 3x3 or 5x5 at TAP_SHAPES); each part timed both
+    ways beside its bound; both forms of the 3x3 and 5x5."""
+    from md_rdm_tpu_torch.core import trace
+    from md_rdm_tpu_torch.core.device import no_tf32
+    from md_rdm_tpu_torch.models import wsm
+    from md_rdm_tpu_torch.models.rdm import init_parameters
+    rows = []
+    for stage in WSM_PHASE_STAGES:
+        c, s = wsm.WSM_STAGES[stage - 1]
+        raw = wsm.FIRST_STAGE_INPUT if stage == 1 else 2 * c
+        n = s // 2
+        layer = wsm.WSMLayer(c, s, raw)
+        init_parameters(layer, SEED + stage)
+        g = torch.Generator().manual_seed(SEED + 600 + stage)
+        with torch.no_grad():    # init_parameters zeroes them
+            for m in layer.modules():
+                if getattr(m, "bias", None) is not None:
+                    m.bias.normal_(0.0, 0.1, generator=g)
+        layer = layer.cuda().eval()
+        g = torch.Generator(device="cuda").manual_seed(SEED + 600 + stage)
+        x = torch.randn(BATCH, raw, n, n, generator=g, device="cuda"
+                        ).contiguous(memory_format=torch.channels_last)
+        work = wsm_work(c, raw, n, BATCH)
+        with no_tf32(), torch.inference_mode():
+            check(not torch.backends.cuda.matmul.allow_tf32,
+                  "wsm: TF32 on in the products")
+            kxk = sum((k, c // 4, s) in wsm.TAP_SHAPES for k in (3, 5))
+            names = ("wsm.gemm", "wsm.gemm.kxk")
+            before = trace.snapshot()["counters"]
+            got = layer(x)
+            after = trace.snapshot()["counters"]
+            counters = {k: after.get(k, 0) - before.get(k, 0)
+                        for k in names}
+            want = library_wsm(layer, x)
+            err = rel_l2(got, want)
+            peak = {"peak_mb": _peak(lambda: layer(x))["own_gb"] * 1e3,
+                    "library_peak_mb":
+                        _peak(lambda: library_wsm(layer, x))["own_gb"]
+                        * 1e3}
+            t = {"ms": [], "library_ms": []}
+            for which in ("ms", "library_ms", "library_ms", "ms"):
+                fn = ((lambda: layer(x)) if which == "ms"
+                      else (lambda: library_wsm(layer, x)))
+                t[which].append(graph_ms(fn, 5))
+            parts, state = wsm_parts(layer, x)
+            part_rows = {}
+            for name, (mine, lib) in parts.items():
+                pt = {"ms": [], "library_ms": []}
+                for which in ("ms", "library_ms", "library_ms", "ms"):
+                    pt[which].append(graph_ms(
+                        mine if which == "ms" else lib, 5))
+                part_rows[name] = {k: min(v) for k, v in pt.items()}
+                part_rows[name].update(_bound(*work[name], torch.float32))
+            forms = wsm_kxk_forms(layer, state["p"], state["budget"])
+        flops = sum(f for f, _ in work.values())
+        nbytes = sum(b for _, b in work.values())
+        row = {"stage": stage, "c": c, "raw": raw, "size_in": n,
+               "batch": BATCH, "dtype": "float32",
+               "ms": min(t["ms"]), "library_ms": min(t["library_ms"]),
+               "turns_ms": t, "rel_l2": err, "tol": WSM_TOL,
+               **_bound(flops, nbytes, torch.float32), **peak,
+               "counters": counters, "parts": part_rows,
+               "kxk_forms": forms}
+        rows.append(row)
+        emit({"phase": "wsm", "card": smi, **row})
+        check(err < WSM_TOL, f"wsm: stage {stage} against cuDNN {err}")
+        check(counters == {"wsm.gemm": 1, "wsm.gemm.kxk": kxk},
+              f"wsm: stage {stage} counters {counters}")
+        del layer, x, got, want, parts, state
+        torch.cuda.empty_cache()
+    return rows
+
+
 def graph_in_child() -> None:
     """Phase 19 in a process of its own (``--graph-only``), which counts
     replays' kernels in profiler traces: late in one long process the
@@ -5290,6 +5522,9 @@ def main() -> int:
     if "--graph-only" in sys.argv[1:]:
         phase_graph(smi)
         return 0
+    if "--wsm-only" in sys.argv[1:]:
+        phase_wsm(smi)
+        return 0
     if "--train-optimal-only" in sys.argv[1:]:
         _, times = phase_train_optimal(smi)
         phase_loop(smi, next(r["step_ms"] for r in times
@@ -5310,6 +5545,8 @@ def main() -> int:
     lloyd_forward, lloyd_rows = phase_times_lloyd(smi)
     phase_times_optimal(opt_preds, opt_requests, smi)
     del preds, opt_preds, states, batch
+    torch.cuda.empty_cache()
+    phase_wsm(smi)
     torch.cuda.empty_cache()
     routing = phase_routing(smi)
     torch.cuda.empty_cache()

@@ -121,8 +121,10 @@ def test_a_fault_reads_above_the_limit(optimal, fault, number):
 
 def test_the_kept_read_and_the_relative_records(optimal):
     """``trace.kept`` against ``snapshot()["kept"]``, which leaves the
-    quantized matrices out; the relative tail's counters of one forward;
-    no device span on the CPU."""
+    quantized matrices out; the relative tail's counters of one forward,
+    and its WSM stages' (decoders 7-9 run 1 + 2 + 3 stages as products,
+    decoder 9's third-stage 5x5 as tap products); no device span on the
+    CPU."""
     ids, model, feats, _, _ = optimal
     stages = {}
     with torch.no_grad():
@@ -142,7 +144,8 @@ def test_the_kept_read_and_the_relative_records(optimal):
     assert trace.kept("als.quadratic.d7.best_iter") is None
     assert snap["counters"] == {"relative.tails": 1,
                                 "relative.pages": 2 * (1 + 4 + 16),
-                                "relative.als_steps": 30 + 100}
+                                "relative.als_steps": 30 + 100,
+                                "wsm.gemm": 1 + 2 + 3, "wsm.gemm.kxk": 1}
     assert not any(n.startswith("relative.") for n in snap["spans"])
     assert trace.read_device() == {}
 

@@ -13,6 +13,7 @@ import torch
 
 from _torch_parity import nhwc_to_torch, rel_l2, torch_to_nhwc
 from md_rdm_tpu.models import wsm as jwsm
+from md_rdm_tpu_torch.core import trace
 from md_rdm_tpu_torch.models import wsm as twsm
 from md_rdm_tpu_torch.weights import from_jax_variables, to_jax_variables
 
@@ -44,25 +45,85 @@ def _random_params(params, seed):
     return walk(params)
 
 
-@pytest.mark.parametrize("c,strip,raw,spatial", [
-    (32, 16, 64, 8),          # narrow
-    (1664, 16, 2208, 8),      # the first stage at full width
-])
-def test_wsm_layer(c, strip, raw, spatial):
-    x = np.random.default_rng(c).standard_normal(
-        (1, spatial, spatial, raw)).astype(np.float32)
+def _stage_args(stage):
+    """(c, strip, raw, spatial) of a cascade stage at full width."""
+    c, strip = twsm.WSM_STAGES[stage - 1]
+    raw = twsm.FIRST_STAGE_INPUT if stage == 1 else 2 * c
+    return c, strip, raw, strip // 2
+
+
+def _layer_pair(c, strip, raw, x, seed):
+    """The flax stage with seeded random parameters, and the port's stage
+    loaded with them."""
     jmod = jwsm.WSMLayer(c, strip)
     params = _random_params(
-        jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], c + 1)
+        jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], seed)
+    tmod = twsm.WSMLayer(c, strip, raw)
+    tmod.load_state_dict(from_jax_variables(params, {}), strict=True)
+    return jmod, params, tmod
+
+
+@pytest.mark.parametrize("c,strip,raw,spatial,batch", [
+    (32, 16, 64, 8, 1),          # narrow
+    (1664, 16, 2208, 8, 1),      # the first stage at full width
+] + [_stage_args(stage) + (2,) for stage in (1, 2, 3, 4)])
+def test_wsm_layer(c, strip, raw, spatial, batch):
+    x = np.random.default_rng(c).standard_normal(
+        (batch, spatial, spatial, raw)).astype(np.float32)
+    jmod, params, tmod = _layer_pair(c, strip, raw, x, c + 1)
     k = params["deconv1"]["kernel"]
     assert not np.allclose(k, k[::-1, ::-1])
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
-    tmod = twsm.WSMLayer(c, strip, raw)
-    tmod.load_state_dict(from_jax_variables(params, {}), strict=True)
     with torch.no_grad():
         got = tmod(nhwc_to_torch(x))
-    assert tuple(got.shape) == (1, c, 2 * spatial, 2 * spatial)
+    assert tuple(got.shape) == (batch, c, 2 * spatial, 2 * spatial)
+    assert got.is_contiguous(memory_format=torch.channels_last)
     assert rel_l2(torch_to_nhwc(got), want) < BAR
+
+
+@pytest.mark.parametrize("c,strip,raw,spatial", [
+    (32, 16, 64, 8),             # narrow
+    _stage_args(1),              # the first stage at full width
+])
+def test_wsm_layer_grad(c, strip, raw, spatial):
+    """A scalar loss's gradients through the port's products (autograd)
+    against jax.grad through the flax stage: the input's and every
+    parameter's, the latter mapped as the weights are."""
+    rng = np.random.default_rng(c + 2)
+    x = rng.standard_normal((2, spatial, spatial, raw)).astype(np.float32)
+    r = rng.standard_normal((2, 2 * spatial, 2 * spatial, c)).astype(
+        np.float32)
+    jmod, params, tmod = _layer_pair(c, strip, raw, x, c + 3)
+
+    def loss(p, xin):
+        return jnp.sum(jmod.apply({"params": p}, xin) * r)
+
+    want_p, want_x = jax.grad(loss, (0, 1))(params, jnp.asarray(x))
+    xt = nhwc_to_torch(x).requires_grad_(True)
+    (tmod(xt) * nhwc_to_torch(r)).sum().backward()
+    assert rel_l2(torch_to_nhwc(xt.grad), np.asarray(want_x)) < BAR
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, want_p), {})
+    got = {k: v.grad for k, v in tmod.named_parameters()}
+    assert set(got) == set(want)
+    for name in want:
+        assert rel_l2(got[name].numpy(), want[name].numpy()) < BAR, name
+
+
+def test_cascade_counts_products():
+    """Every stage of a 3-stage cascade runs as products: 3 wsm.gemm; of
+    its 3x3 and 5x5 convolutions the shapes of TAP_SHAPES (the third
+    stage's 5x5) run as tap products: 1 wsm.gemm.kxk."""
+    tmod = twsm.WSMCascade(3)
+    x = torch.zeros(1, twsm.FIRST_STAGE_INPUT, 8, 8).contiguous(
+        memory_format=torch.channels_last)
+    names = ("wsm.gemm", "wsm.gemm.kxk")
+    before = trace.snapshot()["counters"]
+    with torch.no_grad():
+        out = tmod(x)
+    after = trace.snapshot()["counters"]
+    assert tuple(out.shape) == (1, 416, 64, 64)
+    assert twsm.TAP_SHAPES == {(5, 104, 64)}
+    assert [after.get(k, 0) - before.get(k, 0) for k in names] == [3, 1]
 
 
 def test_cascade_two_stages():
